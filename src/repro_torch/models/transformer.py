@@ -1,0 +1,177 @@
+"""Dense decoder-only transformer family (port of
+``repro.models.transformer``).
+
+``TransformerLM`` holds the parameters (an ``nn.ModuleList`` of
+``Block``s, one per layer); the functions below take it with the config,
+as the JAX package's functions take (params, cfg). One set of weights can
+so run under configs that differ only in ``attn_impl``.
+
+batch keys: tokens [B,T] int; positions [B,T] int32; optional bits
+[B,T] int32 (BAM; None => causal); optional inputs_embeds [B,T,d] +
+embed_mask [B,T] bool (multimodal merge).
+
+The dense ``decode_step`` (a [B, Tmax] strip cache) is not ported: the
+port serves through the paged cache (``repro_torch.serving``).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import bam
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+        super().__init__()
+        gated = cfg.act == "silu" or cfg.name.startswith("gemma2")
+        self.ln1 = L.Norm(cfg, cfg.d_model, dtype, device)
+        self.attn = L.Attention(cfg, dtype, device, generator)
+        self.ln2 = L.Norm(cfg, cfg.d_model, dtype, device)
+        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dtype, device, generator,
+                         gated)
+        if cfg.post_block_norm:
+            self.post_ln1 = L.Norm(cfg, cfg.d_model, dtype, device)
+            self.post_ln2 = L.Norm(cfg, cfg.d_model, dtype, device)
+
+
+class TransformerLM(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device="cuda", generator=None):
+        super().__init__()
+        dev = resolve_device(device)
+        dtype = torch_dtype(cfg)
+        self.embed = L.normal_param((cfg.vocab_size, cfg.d_model), dtype,
+                                    dev, generator)
+        self.layers = nn.ModuleList(
+            Block(cfg, dtype, dev, generator) for _ in range(cfg.num_layers))
+        self.final_ln = L.Norm(cfg, cfg.d_model, dtype, dev)
+        self.unembed = None if cfg.tie_embeddings else L.normal_param(
+            (cfg.d_model, cfg.vocab_size), dtype, dev, generator)
+
+
+def init(cfg: ModelConfig, *, device="cuda", generator=None) -> TransformerLM:
+    """Random weights (normal × 0.02 for matrices, as the JAX init) on
+    ``device``, drawn from ``generator`` (on the same device)."""
+    return TransformerLM(cfg, device=device, generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Layer body
+# ---------------------------------------------------------------------------
+
+def layer_window(cfg: ModelConfig, layer_idx: int) -> int:
+    """gemma2 alternation: every cfg.local_global_pattern-th layer is
+    global, others use cfg.sliding_window."""
+    if cfg.local_global_pattern:
+        is_global = (layer_idx % cfg.local_global_pattern) == (
+            cfg.local_global_pattern - 1)
+        return 0 if is_global else cfg.sliding_window
+    return cfg.sliding_window
+
+
+def _mask_for(batch, window: int):
+    """[B,1,T,T] bool mask; the window constrains text queries only."""
+    pos = batch["positions"]
+    win_ok = (pos[:, :, None] - pos[:, None, :]) < window if window \
+        else torch.ones((), dtype=torch.bool, device=pos.device)
+    bits = batch.get("bits")
+    if bits is not None:
+        m = bam.allowed_mask(bits, bits, pos, pos)
+        q_text = bam.own_modality(bits[:, :, None]) == bam.TEXT
+        return (m & (win_ok | ~q_text))[:, None]
+    m = pos[:, None, :] <= pos[:, :, None]
+    return (m & win_ok)[:, None]
+
+
+def _default_ffn(lp: Block, h, cfg: ModelConfig):
+    return L.run_mlp(lp.mlp, h, cfg.act)
+
+
+def _block(cfg: ModelConfig, p: Block, x, batch, layer_idx: int):
+    """One layer. Returns (x, (k, v)) with the layer's projected, roped
+    K/V (kept by the serving prefill)."""
+    window = layer_window(cfg, layer_idx)
+    # the BAM kernel takes one static window for the model; gemma2's
+    # per-layer alternation stays on the plain path, as in JAX
+    kernel_bits = None
+    if (cfg.attn_impl != "xla" and batch.get("bits") is not None
+            and not cfg.local_global_pattern):
+        kernel_bits = batch["bits"]
+
+    h = L.apply_norm(cfg, p.ln1, x)
+    attn_out, kv = L.run_attention(
+        p.attn, cfg, h, q_pos=batch["positions"],
+        mask_fn=lambda: _mask_for(batch, window),
+        bits=kernel_bits,
+        window=cfg.sliding_window if kernel_bits is not None else 0)
+    if cfg.post_block_norm:
+        attn_out = L.apply_norm(cfg, p.post_ln1, attn_out)
+    x = x + attn_out
+    h = L.apply_norm(cfg, p.ln2, x)
+    mlp_out = _default_ffn(p, h, cfg)
+    if cfg.post_block_norm:
+        mlp_out = L.apply_norm(cfg, p.post_ln2, mlp_out)
+    return x + mlp_out, kv
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def embed_tokens(model: TransformerLM, cfg: ModelConfig, batch):
+    x = model.embed[batch["tokens"].long()]
+    if cfg.embed_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if batch.get("inputs_embeds") is not None:
+        x = torch.where(batch["embed_mask"][..., None],
+                        batch["inputs_embeds"].to(x.dtype), x)
+    return x
+
+
+def hidden(model: TransformerLM, cfg: ModelConfig, batch):
+    x = embed_tokens(model, cfg, batch)
+    for i, lp in enumerate(model.layers):
+        x, _ = _block(cfg, lp, x, batch, i)
+    return L.apply_norm(cfg, model.final_ln, x)
+
+
+def unembed(model: TransformerLM, cfg: ModelConfig, h):
+    w = model.embed.T if cfg.tie_embeddings else model.unembed
+    logits = h @ w
+    if cfg.final_softcap:
+        logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
+    return logits
+
+
+def forward(model: TransformerLM, cfg: ModelConfig, batch):
+    """Returns (logits [B,T,V], aux dict) like the JAX forward."""
+    return unembed(model, cfg, hidden(model, cfg, batch)), {}
+
+
+def _cache_cfg(cfg: ModelConfig) -> ModelConfig:
+    """The config whose KV head count the decode cache holds
+    (``decode_kv_replicate`` widens it)."""
+    if cfg.decode_kv_replicate > cfg.num_kv_heads:
+        if (cfg.num_heads % cfg.decode_kv_replicate != 0
+                or cfg.decode_kv_replicate % cfg.num_kv_heads != 0):
+            raise ValueError(
+                f"{cfg.name}: decode_kv_replicate="
+                f"{cfg.decode_kv_replicate} must divide num_heads="
+                f"{cfg.num_heads} and be a multiple of num_kv_heads="
+                f"{cfg.num_kv_heads}")
+        return cfg.replace(num_kv_heads=cfg.decode_kv_replicate,
+                           decode_kv_replicate=0)
+    return cfg

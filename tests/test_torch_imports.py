@@ -1,0 +1,62 @@
+"""Boundaries of the PyTorch port: importing ``repro_torch`` (every
+submodule) and ``chip_smoke.py`` loads neither ``jax`` nor ``repro``,
+checked in a fresh interpreter because the test worker may already hold
+jax; the port's sources call no library attention or compiler; and
+``chip_smoke.py`` refuses to run where there is no card."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_GUARD = """
+import importlib, pkgutil, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_port_imports_neither_jax_nor_repro():
+    code = _GUARD.format(src=str(ROOT / "src"), root=str(ROOT))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, env=_env(), cwd=str(ROOT))
+    assert res.returncode == 0, res.stdout + res.stderr
+    n_modules = int(res.stdout.split()[0])
+    assert n_modules >= 20
+
+
+def test_port_sources_call_no_library_attention():
+    banned = ("scaled_dot_product_attention", "torch.compile",
+              "flex_attention", "cudnn", "flash_attn", "import jax",
+              "from jax", "from repro.", "import repro\n")
+    for path in PORT.rglob("*"):
+        if path.suffix not in (".py", ".cu", ".cuh"):
+            continue
+        text = path.read_text()
+        for word in banned:
+            assert word not in text, f"{path.relative_to(ROOT)}: {word}"
+
+
+def test_chip_smoke_fails_without_a_card():
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120,
+                         env=_env(), cwd=str(ROOT))
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
