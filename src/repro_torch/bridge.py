@@ -2,9 +2,10 @@
 port's modules, so both packages compute with the same weights.
 
 The JAX tree stacks every layer's leaves on a leading axis
-(``layers.stacked_init``); the port holds one ``Block`` per layer, so
-that axis is unstacked into ``layers.<i>.<path>``. Both packages keep
-weights as [d_in, d_out], so every other leaf is a plain copy.
+(``layers.stacked_init``); the port holds one module per layer, so that
+axis is unstacked into ``layers.<i>.<path>``. Both packages keep
+weights as [d_in, d_out], so every other leaf is a plain copy. Loads are
+strict: every parameter on both sides must be matched.
 """
 from __future__ import annotations
 
@@ -16,7 +17,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import api
-from repro_torch.models.transformer import torch_dtype
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -46,15 +46,47 @@ def state_dict_from_jax(tree: Mapping, num_layers: int) -> Dict[str, np.ndarray]
     return flat
 
 
-def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cuda"):
-    """A port model on ``device`` holding the JAX tree's weights (numpy
-    leaves, e.g. ``jax.tree.map(np.asarray, params)``), in cfg's dtype.
-    Every parameter must be matched exactly (strict load)."""
-    dev = resolve_device(device)
-    model = api.init(cfg, device="meta")
-    dtype = torch_dtype(cfg)
-    state = {name: torch.from_numpy(np.array(arr, np.float32)).to(dtype)
-             for name, arr in state_dict_from_jax(tree, cfg.num_layers).items()}
+def _load(model: torch.nn.Module, flat: Mapping[str, np.ndarray], dev):
+    """Materialise a meta-device ``model`` on ``dev`` and copy ``flat``
+    into it strictly; each leaf is cast to its parameter's dtype."""
     model = model.to_empty(device=dev)
+    state = {name: torch.from_numpy(np.array(arr, np.float32))
+             for name, arr in flat.items()}
     model.load_state_dict(state, strict=True)
     return model
+
+
+def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cuda"):
+    """A port model on ``device`` holding the JAX tree's weights (numpy
+    leaves, e.g. ``jax.tree.map(np.asarray, params)``), in cfg's dtype."""
+    dev = resolve_device(device)
+    return _load(api.init(cfg, device="meta"),
+                 state_dict_from_jax(tree, cfg.num_layers), dev)
+
+
+def mllm_from_jax_params(tree: Mapping, mllm, device="cuda"):
+    """The port's ``MLLMParams`` for a ``core.modality.MultimodalModule``
+    from the JAX package's ``MultimodalModule.init`` tree (numpy leaves):
+    ``encoders.<name>.module`` (layer axis unstacked with that encoder's
+    depth), ``encoders.<name>.projector``, ``llm``. Frozen parts get
+    ``requires_grad=False``."""
+    dev = resolve_device(device)
+    flat = {}
+    for name, enc in tree["encoders"].items():
+        if name not in mllm.encoders:
+            raise KeyError(f"encoder {name!r} is not in the module "
+                           f"({sorted(mllm.encoders)})")
+        depth = mllm.encoders[name].cfg.num_layers
+        for key, arr in state_dict_from_jax(enc["module"], depth).items():
+            flat[f"encoders.{name}.module.{key}"] = arr
+        for key, arr in _flatten(enc["projector"]).items():
+            flat[f"encoders.{name}.projector.{key}"] = arr
+    for key, arr in state_dict_from_jax(
+            tree["llm"], mllm.llm_cfg.num_layers).items():
+        flat[f"llm.{key}"] = arr
+    extra = set(tree) - {"encoders", "llm"}
+    if extra:
+        raise KeyError(f"unexpected top-level keys {sorted(extra)}")
+    params = _load(mllm.init(device="meta"), flat, dev)
+    mllm.apply_freeze(params)
+    return params

@@ -1,8 +1,8 @@
 // Device helpers shared by the port's BAM kernels (bam_fwd.cu,
-// paged_decode.cu): the mask rule of repro_torch.core.bam.allowed_mask
-// for one (query, key) pair, and conversions between the element type
-// and the f32 the kernels compute in. Bitfields arrive as int32 and are
-// read as unsigned.
+// bam_bwd_dq.cu, bam_bwd_dkv.cu, paged_decode.cu): the mask rule of
+// repro_torch.core.bam.allowed_mask for one (query, key) pair, and
+// conversions between the element type and the f32 the kernels compute
+// in. Bitfields arrive as int32 and are read as unsigned.
 #pragma once
 
 #include <cuda_bf16.h>

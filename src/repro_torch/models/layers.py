@@ -23,7 +23,9 @@ ATTN_IMPLS = ("xla", "bam_kernel")
 # ---------------------------------------------------------------------------
 
 def normal_param(shape, dtype, device, generator, scale: float = 0.02):
-    """N(0, 1) * scale drawn in f32 (as the JAX init), cast to dtype."""
+    """N(0, 1) * scale drawn in f32 (as the JAX init), cast to dtype.
+    Parameters start frozen; a trainer turns on what it trains with
+    ``requires_grad_`` (``core.modality.MultimodalModule.apply_freeze``)."""
     x = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32) * scale
     return nn.Parameter(x.to(dtype), requires_grad=False)
@@ -147,15 +149,17 @@ def attn_project_qkv(p: Attention, cfg: ModelConfig, x_q, x_kv):
 
 
 def run_attention(p: Attention, cfg: ModelConfig, x, *, q_pos, mask_fn,
-                  window: int = 0, bits=None):
+                  window: int = 0, bits=None, rope: bool = True):
     """Self-attention block over x [B,T,d]. Returns (out [B,T,d], (k, v))
-    with k/v the projected, roped [B,T,Hkv,hd] the serving prefill keeps.
+    with k/v the projected (and, with ``rope``, roped) [B,T,Hkv,hd] the
+    serving prefill keeps.
 
     With ``bits`` given and ``cfg.attn_impl == "bam_kernel"``, attention
-    runs through the BAM op (K1) with ``window`` as the static sliding
-    window; otherwise the plain masked ``sdpa`` with ``mask_fn()``'s
-    [B,1,T,T] mask (built only on that path). Fresh K rotates by the
-    query positions, pads included."""
+    runs through the BAM op (K1 forward, K2/K3 backward) with ``window``
+    as the static sliding window; otherwise the plain masked ``sdpa``
+    with ``mask_fn()``'s mask, broadcastable to [B,1,T,T] (built only on
+    that path; the encoders pass an all-true one). Fresh K rotates by
+    the query positions, pads included."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={cfg.attn_impl!r}; the port has "
                          f"{ATTN_IMPLS} (bam_interpret is JAX-only)")
@@ -170,8 +174,9 @@ def run_attention(p: Attention, cfg: ModelConfig, x, *, q_pos, mask_fn,
             "attn_q_chunk (q-chunked plain attention) is not ported yet")
     b, tq, _ = x.shape
     q, k, v = attn_project_qkv(p, cfg, x, x)
-    q = apply_rope(q, q_pos, cfg.rope_theta)
-    k = apply_rope(k, q_pos, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, q_pos, cfg.rope_theta)
     if cfg.attn_impl == "bam_kernel" and bits is not None:
         out = ops.bam_attention(
             q, k, v, bits, bits, q_pos, q_pos, softcap=cfg.attn_softcap,

@@ -23,7 +23,8 @@ from repro.serving import PageTable as JPageTable
 from repro.serving import build_decode_grid as j_build_grid
 from repro_torch.core import bam as tbam
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.bam_attention import (NEG_INF, bam_flash_attention,
+from repro_torch.kernels.bam_attention import (NEG_INF, bam_bwd_dkv,
+                                               bam_bwd_dq, bam_flash_attention,
                                                bam_flash_attention_torch)
 from repro_torch.kernels.paged_decode import (decode_steps,
                                               paged_decode_attention,
@@ -110,13 +111,16 @@ def test_ops_rejects_what_the_port_lacks():
     with pytest.raises(ValueError, match="bam_interpret"):
         tops.bam_attention(q, k, v, bits, bits, pos, pos,
                            impl="bam_interpret")
-    with pytest.raises(NotImplementedError, match="train-step"):
-        tops.bam_attention(q.requires_grad_(), k, v, bits, bits, pos, pos,
-                           impl="bam_kernel")
     with pytest.raises(ValueError, match="stats"):
         bam_flash_attention(q, k, v, bits, bits, pos, pos,
                             return_mode="stats")
+    # the op has a backward now (tests/test_torch_bwd.py); on the CPU it
+    # runs the plain versions of K1, K2 and K3 and never launches
+    tops.bam_attention(q.requires_grad_(), k, v, bits, bits, pos, pos,
+                       impl="bam_kernel").sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
     assert bam_flash_attention.launches == 0          # the CPU never launches
+    assert bam_bwd_dq.launches == 0 and bam_bwd_dkv.launches == 0
 
 
 def _paged_fixture(page_size, Hkv, hd, seed=0):
