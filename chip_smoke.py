@@ -4,6 +4,7 @@ NVIDIA GPU. Run from the root of the repository:
 
     python3 chip_smoke.py                       # every phase
     python3 chip_smoke.py --phases kernels      # phases 1-2 only
+    python3 chip_smoke.py --phases kernels,cp   # phases 1-2, 7-8
 
 Phases (any failure exits non-zero and prints no result line; the result
 line is printed only when every phase ran and passed):
@@ -21,17 +22,28 @@ line is printed only when every phase ran and passed):
      k/v [1,1600,8,128] with the vlm layout's bits (512 text, 576 image,
      512 text), bf16 and f32, a softcap-50/window-256 case and a ragged
      T = 1000; K3 run twice must give the same bits;
-   - K4 (paged decode) on a [P,16,8,128] page pool with 4 rows, one empty.
+   - K4 (paged decode) on a [P,16,8,128] page pool with 4 rows, one empty;
+   - at the most loaded rank's share of a 4-rank LPT plan of
+     ``random_multimodal_bits(4096, "ee", seed=0)`` (block 128) with
+     qwen3-1.7b's widths (16 query, 8 KV heads of 128), bf16 and f32: K1
+     stats on q [1,1024] against all 4096 keys (the allgather share) and
+     against one 1024-key ring chunk with rows that see no key there
+     (exactly m = -1e30, l = 0, acc = 0); the four chunks' stats combined
+     against one K1 residual call; K2 and K3 at Tq 1024, Tk 4096.
 3. Serve 8 requests (6 text, 2 multimodal, 32 new tokens each) through
    ``ServingEngine(attn="kernel")`` at the full width and depth of
    ``llm_config("M")`` (Llama-3.1-8B widths) in bf16, random weights from
    a seeded generator. Launch counts are zeroed just before and read
    just after: K1 must launch once per layer per request, K4 > 0.
    Then a torch.profiler window over 3 decode ticks of 4 rows prints the
-   device busy share and the top kernels by device time.
+   device busy share and the top kernels by device time. One multimodal
+   request is served again, prefilled in a 4-rank plan's layout: its
+   pages are owned by the 4 ranks, and its agreement with the plan-less
+   run is printed.
 4. Serving parity: at f32 with 2 layers (full width) the kernel engine
-   and the plain engine emit identical greedy tokens; at bf16 full depth,
-   the two paths' last-row prefill logits are compared.
+   and the plain engine emit identical greedy tokens, and the request
+   prefilled in the plan's layout emits its plan-less tokens; at bf16
+   full depth, the two paths' last-row prefill logits are compared.
 5. Train: 3 steps of ``make_mllm_train_step`` on
    ``build_paper_mllm("vlm", llm_size="M", vision_size="S")`` (a frozen
    40-layer EVA-CLIP-S-width encoder, a trainable linear projector, the
@@ -47,7 +59,20 @@ line is printed only when every phase ran and passed):
    full width; the kernel path and the plain path (attn_impl="xla"), from
    the same weights and batches, give the same loss (rel 1e-5) and
    grad_norm (rel 1e-4) at each of 3 steps.
-7. Print a ``{"kernels": [...]}`` line, the nvidia-smi line, and, last,
+7. Context parallelism, on a NCCL process group of world size 1 (NCCL
+   refuses two ranks on one card) with the 4-rank LPT plan applied to
+   the sequence: 3 allgather and 3 ring steps of ``make_cp_train_step``
+   on full-width qwen3-1.7b (28 layers, bf16, all 1.72 B parameters
+   trainable, B = 1, T = 4096), from the same seeded weights. Launch
+   counts are zeroed just before and read just after each step: K1
+   stats, K2 and K3 must launch 28 times per step, K1 residual and K4
+   never. A fourth allgather step runs under the profiler. One
+   unpermuted non-CP step on the kernel path must agree with step 0 of
+   both runs within rel 2e-2 (bf16).
+8. CP parity: at f32, full width, 2 layers, the CP step (both methods,
+   kernels) and the plain non-CP step (attn_impl="xla") give the same
+   loss (rel 1e-5) and grad_norm (rel 1e-4) at each of 3 steps.
+9. Print a ``{"kernels": [...]}`` line, the nvidia-smi line, and, last,
    ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -66,6 +91,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+PHASES = ("kernels", "serving", "train", "cp")
+KERNEL_KEYS = ("K1", "K1s", "K2", "K3", "K4")
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
@@ -118,6 +145,7 @@ class Smoke:
         self.failures = []
         self.kernels = {}
         self.launches = {}
+        self.cp_share = {}
 
     def check(self, ok: bool, what: str) -> None:
         print(("PASS " if ok else "FAIL ") + what, flush=True)
@@ -414,6 +442,242 @@ def k4_cases(smoke: Smoke):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2, continued: K1's stats mode and K2/K3 at a context-parallel share
+# ---------------------------------------------------------------------------
+
+CP_T, CP_RANKS, CP_BLOCK = 4096, 4, 128
+
+
+def cp_layout():
+    """The CP layout: ``random_multimodal_bits(4096, "ee", seed=0)``, its
+    4-rank LPT plan (block 128), the plan-layout bits/positions and the
+    most loaded rank."""
+    from repro_torch.core.context_parallel import simulate_rank_workloads
+    from repro_torch.data.synthetic import random_multimodal_bits
+    from repro_torch.parallel import plan_context
+    bits, pos = random_multimodal_bits(CP_T, "ee", seed=SEED)
+    plan = plan_context(bits, pos, CP_RANKS, block_size=CP_BLOCK,
+                        method="lpt")
+    layout = plan.apply(CP_T)
+    loads = simulate_rank_workloads(plan.core_plan(), bits, pos)
+    perm = layout["perm"]
+    return dict(bits=bits, pos=pos, plan=plan, layout=layout,
+                pbits=bits[perm], ppos=pos[perm], loads=loads,
+                rank=int(np.argmax(loads)))
+
+
+def compare_stats(got, plain, dtype: str):
+    """K1 stats against its plain version: acc and l divided per row by
+    the plain l (their scale; 1 on rows with l = 0), m as it is, then
+    ``compare``'s element rule. Returns (max |d| of the raw values, worst
+    |d|/tol over the three)."""
+    acc, m, l = got
+    acc_p, m_p, l_p = plain
+    scale = l_p.clamp_min(1.0)
+    worst = max(compare(acc / scale[..., None], acc_p / scale[..., None],
+                        dtype)[1],
+                compare(l / scale, l_p / scale, dtype)[1],
+                compare(m, m_p, dtype)[1])
+    err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+    return err, worst
+
+
+def empty_rows_exact(stats):
+    """(number of rows with l == 0, whether each has exactly m = -1e30,
+    l = 0, acc = 0)."""
+    acc, m, l = stats
+    empty = l == 0
+    ok = bool((m[empty] == -1e30).all() and (acc[empty] == 0).all())
+    return int(empty.sum()), ok
+
+
+def cp_kernel_cases(smoke: Smoke):
+    """K1 stats, the combine, and K2/K3 at the most loaded rank's share of
+    the 4-rank LPT layout (qwen3-1.7b's widths: 16 query and 8 KV heads
+    of 128): allgather share q [1,1024] against all 4096 keys, and one
+    ring chunk (1024 keys of another rank, with rows empty in it)."""
+    torch = smoke.torch
+    import torch.nn.functional as F
+    from repro_torch.core import bam
+    from repro_torch.core import context_parallel as cp
+    from repro_torch.kernels.bam_attention import (
+        bam_bwd_dkv, bam_bwd_dkv_torch, bam_bwd_dq, bam_bwd_dq_torch,
+        bam_flash_attention, bam_flash_attention_torch, bwd_delta)
+
+    lay = cp_layout()
+    H, Hkv, hd = 16, 8, 128
+    Tl = CP_T // CP_RANKS
+    r = lay["rank"]
+    own = slice(r * Tl, (r + 1) * Tl)
+    bits = torch.from_numpy(lay["pbits"]).cuda()[None]
+    pos = torch.from_numpy(lay["ppos"]).cuda()[None]
+    qb, qp = bits[:, own].contiguous(), pos[:, own].contiguous()
+    # the ring chunk: another rank's keys, the one leaving most of this
+    # rank's rows without a key (but not all)
+    empties = []
+    for c in range(CP_RANKS):
+        ch = slice(c * Tl, (c + 1) * Tl)
+        allowed = bam.allowed_mask(qb, bits[:, ch], qp, pos[:, ch]).any(-1)
+        n_empty = int((~allowed).sum())
+        empties.append(n_empty if 0 < n_empty < Tl else -1)
+    chunk = int(np.argmax(empties))
+    print(f"CP layout: T {CP_T}, {CP_RANKS}-rank LPT plan (block "
+          f"{CP_BLOCK}), rank loads {lay['loads'].tolist()} allowed pairs; "
+          f"share of rank {r} (the most loaded); ring chunk of rank {chunk} "
+          f"({empties[chunk]} of its rows have no key there)", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        q, do = (torch.randn((1, Tl, H, hd), generator=gen,
+                             device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((1, CP_T, Hkv, hd), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        kw = dict(return_mode="stats")
+        # allgather share
+        ag = (q, k, v, qb, bits, qp, pos)
+        st = bam_flash_attention(*ag, **kw)
+        torch.cuda.synchronize()
+        st_p = bam_flash_attention_torch(*ag, **kw)
+        err, ratio = compare_stats(st, st_p, dt)
+        n_empty, exact = empty_rows_exact(st)
+        name = f"K1 stats allgather share q[1,{Tl},{H},{hd}] kv[1,{CP_T}," \
+               f"{Hkv},{hd}] {dt}"
+        smoke.check(ratio <= 1.0 and exact and n_empty == int(
+            (st_p[2] == 0).sum()),
+                    f"{name}: max_abs_err {err:.3e} (acc and l per row over "
+                    f"the plain l, m as is; tol {TOL_TEXT[dt]}; worst "
+                    f"|d|/tol {ratio:.3f}); {n_empty} empty rows (every "
+                    f"token sees itself), exact: {exact}")
+        if dt == "bfloat16":
+            headline = dict(args=ag, err=err, ratio=ratio, name=name)
+        # one ring chunk, then the four chunks combined against one K1
+        # residual call over all keys
+        parts = []
+        for c in range(CP_RANKS):
+            ch = slice(c * Tl, (c + 1) * Tl)
+            args = (q, k[:, ch].contiguous(), v[:, ch].contiguous(), qb,
+                    bits[:, ch].contiguous(), qp, pos[:, ch].contiguous())
+            parts.append(bam_flash_attention(*args, **kw))
+            if c != chunk:
+                continue
+            torch.cuda.synchronize()
+            part_p = bam_flash_attention_torch(*args, **kw)
+            err_c, ratio_c = compare_stats(parts[-1], part_p, dt)
+            n_empty, exact = empty_rows_exact(parts[-1])
+            smoke.check(ratio_c <= 1.0 and exact and n_empty > 0
+                        and n_empty == int((part_p[2] == 0).sum()),
+                        f"K1 stats ring chunk q[1,{Tl}] kv[1,{Tl}] {dt}: "
+                        f"max_abs_err {err_c:.3e} (worst |d|/tol "
+                        f"{ratio_c:.3f}); {n_empty // H} rows x {H} heads "
+                        f"without a key in the chunk give exactly m = -1e30, "
+                        f"l = 0, acc = 0: {exact}")
+        acc, m, l = parts[0]
+        for part in parts[1:]:
+            acc, m, l = cp._combine_stats(acc, m, l, *part)
+        out_c, lse_c = cp._finish(acc, m, l, dtype), cp._lse_from_stats(m, l)
+        out, lse = bam_flash_attention(*ag, return_mode="residual")
+        err_o, ratio_o = compare(out_c, out, dt)
+        err_l = float((lse_c - lse).abs().max())
+        smoke.check(ratio_o <= 1.0 and err_l <= 1e-3,
+                    f"combine of 4 ring chunks' stats {dt} vs one K1 residual "
+                    f"call over {CP_T} keys: out max_abs_err {err_o:.3e} "
+                    f"(tol {TOL_TEXT[dt]}; worst |d|/tol {ratio_o:.3f}), lse "
+                    f"{err_l:.3e} (tol 1e-3)")
+        # K2 and K3 at the share, from the combined (out, lse)
+        delta = bwd_delta(out_c, do)
+        bargs = (q, k, v, do, lse_c, delta, qb, bits, qp, pos)
+        dq = bam_bwd_dq(*bargs)
+        dk, dv = bam_bwd_dkv(*bargs)
+        torch.cuda.synchronize()
+        e_dq, r_dq = compare(dq, bam_bwd_dq_torch(*bargs), dt)
+        dk_p, dv_p = bam_bwd_dkv_torch(*bargs)
+        e_dk, r_dk = compare(dk, dk_p, dt)
+        e_dv, r_dv = compare(dv, dv_p, dt)
+        del dk_p, dv_p
+        shape = f"Tq {Tl}, Tk {CP_T} {dt}"
+        smoke.check(r_dq <= 1.0, f"K2 CP share {shape}: max_abs_err dq "
+                    f"{e_dq:.3e} (tol {TOL_TEXT[dt]}; worst |d|/tol "
+                    f"{r_dq:.3f})")
+        smoke.check(r_dk <= 1.0 and r_dv <= 1.0,
+                    f"K3 CP share {shape}: max_abs_err dk {e_dk:.3e} (worst "
+                    f"|d|/tol {r_dk:.3f}), dv {e_dv:.3e} (worst {r_dv:.3f})")
+        if dt == "bfloat16":
+            headline.update(bargs=bargs, e_dq=e_dq, r_dq=r_dq,
+                            e_dkv=max(e_dk, e_dv), r_dkv=max(r_dk, r_dv))
+
+    # times at the bf16 share
+    ag, bargs = headline["args"], headline["bargs"]
+    q, k, v, qb_, kb_, qp_, kp_ = ag
+    mask = bam.allowed_mask(qb_, kb_, qp_, kp_)               # [1,Tl,T]
+    pairs = float(mask.sum())
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = cuda_ms(torch, lambda: bam_flash_attention(*ag, return_mode="stats"))
+    plain_ms = cuda_ms(torch, lambda: bam_flash_attention_torch(
+        *ag, return_mode="stats"), iters=3)
+    lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True))
+    small = sum(t.numel() * t.element_size() for t in (qb_, kb_, qp_, kp_))
+    io = sum(t.numel() * t.element_size() for t in (q, k, v))
+    out_bytes = (Tl * H * hd + 2 * Tl * H) * 4                # acc, m, l
+    b_ms, b_by = bound(4.0 * hd * H * pairs, io + small + out_bytes,
+                       "bfloat16")
+    print(f"{headline['name']}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"SDPA with bool mask {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
+          f"({b_by}); {pairs:.0f} allowed pairs (density "
+          f"{pairs / Tl / CP_T:.3f}), "
+          f"{4.0 * hd * H * pairs / ms / 1e9:.1f} TFLOP/s", flush=True)
+    smoke.kernels["K1s"] = {
+        "name": "bam_fwd stats mode (K1 stats, unnormalised acc/m/l for "
+                "context parallelism)",
+        "route": "cuda", "source": "src/repro_torch/kernels/csrc/bam_fwd.cu",
+        "replaces": "src/repro/kernels/bam_attention.py:474",
+        "max_abs_err": headline["err"], "tolerance": TOL_TEXT["bfloat16"]
+        + " (acc, l per row over the plain l)",
+        "worst_err_over_tol": headline["ratio"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": lib_ms,
+        "shape": f"q[1,{Tl},{H},{hd}] kv[1,{CP_T},{Hkv},{hd}] bf16, CP "
+                 f"share of a 4-rank LPT plan"}
+    # K2/K3 at Tq != Tk, beside their train-path numbers; yardstick:
+    # SDPA's backward with a boolean mask, K/V expanded to the 16 heads
+    qt_l = qt.detach().requires_grad_()
+    kt_l, vt_l = (t.repeat_interleave(H // Hkv, dim=1).detach()
+                  .requires_grad_() for t in (kt, vt))
+    out_l = F.scaled_dot_product_attention(qt_l, kt_l, vt_l,
+                                           attn_mask=mask[:, None])
+    g_l = bargs[3].transpose(1, 2)
+    lib_dq = cuda_ms(torch, lambda: torch.autograd.grad(
+        out_l, (qt_l,), g_l, retain_graph=True))
+    lib_dkv = cuda_ms(torch, lambda: torch.autograd.grad(
+        out_l, (kt_l, vt_l), g_l, retain_graph=True))
+    del out_l
+    tile_flops = 2.0 * hd * H * pairs
+    big = io + bargs[3].numel() * bargs[3].element_size()    # q, k, v, do
+    small_b = small + 2 * Tl * H * 4                         # lse, delta
+    for key, fn, fn_p, nprod, out_bytes, err, ratio, lib in (
+            ("K2", bam_bwd_dq, bam_bwd_dq_torch, 3,
+             q.numel() * q.element_size(), headline["e_dq"],
+             headline["r_dq"], lib_dq),
+            ("K3", bam_bwd_dkv, bam_bwd_dkv_torch, 4,
+             2 * k.numel() * k.element_size(), headline["e_dkv"],
+             headline["r_dkv"], lib_dkv)):
+        t_ms = cuda_ms(torch, lambda: fn(*bargs))
+        t_plain = cuda_ms(torch, lambda: fn_p(*bargs), iters=3)
+        b_ms, b_by = bound(nprod * tile_flops, big + small_b + out_bytes,
+                           "bfloat16")
+        print(f"{key} CP share Tq {Tl}, Tk {CP_T} bf16: kernel {t_ms:.3f} ms, "
+              f"plain {t_plain:.3f} ms, SDPA backward with bool mask "
+              f"{lib:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+              f"{nprod * tile_flops / t_ms / 1e9:.1f} TFLOP/s", flush=True)
+        smoke.cp_share[key] = {"ms": t_ms, "plain_ms": t_plain,
+                               "bound_ms": b_ms, "bound_by": b_by,
+                               "library_ms": lib, "max_abs_err": err,
+                               "worst_err_over_tol": ratio,
+                               "shape": f"q[1,{Tl},{H},{hd}] kv[1,{CP_T},"
+                                        f"{Hkv},{hd}] bf16"}
+
+
+# ---------------------------------------------------------------------------
 # Phases 3 and 4: the serving path
 # ---------------------------------------------------------------------------
 
@@ -489,7 +753,37 @@ def serving_phase(smoke: Smoke):
                          decode_ms_per_tick=eng.decode_seconds * 1e3
                          / eng.decode_ticks,
                          tokens_per_s=n_gen / wall, peak_gib=peak)
+    plan_prefill_check(smoke, model, cfg, reqs[6], tokens[6], "bfloat16")
     return model, cfg, reqs
+
+
+def plan_prefill_check(smoke: Smoke, model, cfg, req, want, dtype: str):
+    """One multimodal request prefilled in a 4-rank LPT plan's layout
+    (the serving side of context parallelism) against its plan-less run:
+    its pages must be owned by the plan's 4 ranks, and at f32 its greedy
+    tokens must be equal. The layout reorders K1's and K4's sums over
+    keys, so in bf16 at full depth the tokens may part at a near-tie of
+    these random weights: there the agreement is printed."""
+    from repro_torch.parallel import plan_context
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(model, cfg, num_pages=400, page_size=16,
+                        max_batch=4, attn="kernel", device="cuda")
+    plan = plan_context(req["bits"], req["positions"], 4, block_size=16)
+    rid = eng.submit(**req, plan=plan)
+    eng.step()
+    owners = sorted(set(eng.table.page_owner.tolist()) - {-1})
+    got = eng.run()[rid]
+    lead = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                len(got))
+    text = (f"{dtype} plan-layout prefill ({plan.method}, 4 ranks, imbalance "
+            f"{plan.imbalance:.4f}) of a {len(req['tokens'])}-token "
+            f"multimodal request, {cfg.num_layers} layers: {lead} of its "
+            f"{len(got)} greedy tokens equal the plan-less run's before "
+            f"the first difference; page owners {owners}")
+    if dtype == "float32":
+        smoke.check(got == want and owners == [0, 1, 2, 3], text)
+    else:
+        smoke.check(owners == [0, 1, 2, 3], text)
 
 
 def decode_profile(smoke: Smoke, model, cfg, reqs):
@@ -539,6 +833,8 @@ def parity_phase(smoke: Smoke, model, cfg, reqs):
     smoke.check(same == len(reqs), f"f32 2-layer full width: kernel engine "
                 f"== plain engine greedy tokens for {same}/{len(reqs)} "
                 f"requests")
+    plan_prefill_check(smoke, m32, cfg32.replace(attn_impl="bam_kernel"),
+                       reqs[6], got[6], "float32")
     del m32
 
     # bf16 full depth: last-row prefill logits of the two paths
@@ -734,11 +1030,250 @@ def train_parity_phase(smoke: Smoke):
                     f"1e-4)")
 
 
+# ---------------------------------------------------------------------------
+# Phases 7 and 8: the context-parallel train path
+# ---------------------------------------------------------------------------
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cp_batches(torch, vocab: int, lay, n: int):
+    """n batches of B = 1, T = 4096 on the CP layout's bits/positions
+    (original order), tokens and labels from numpy seeds SEED, SEED+1, ..."""
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(SEED + i)
+        arrays = {"tokens": rng.integers(0, vocab, (1, CP_T)).astype(np.int32),
+                  "labels": rng.integers(0, vocab, (1, CP_T)).astype(np.int32),
+                  "positions": lay["pos"][None], "bits": lay["bits"][None],
+                  "valid": lay["bits"][None] != 0}
+        out.append({k: torch.from_numpy(a).cuda() for k, a in arrays.items()})
+    return out
+
+
+def cp_model(torch, cfg, seed: int):
+    """A model from a seeded generator on the card, all parameters
+    trainable."""
+    from repro_torch.models import api
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = api.init(cfg, device="cuda", generator=gen)
+    model.requires_grad_(True)
+    return model
+
+
+def cp_step(cfg, lay, group, ocfg, method):
+    """make_cp_train_step on the 4-rank plan; on a 1-rank group it warns
+    that the balance is lost, which is expected here."""
+    import warnings
+    from repro_torch.training.steps import make_cp_train_step
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        step = make_cp_train_step(cfg, lay["layout"], group, ocfg,
+                                  method=method)
+    assert any("balanced for 4 ranks" in str(w.message) for w in caught)
+    return step
+
+
+def profile_step(torch, step, model, state, batch, label: str):
+    """One more step under torch.profiler: prints the wall time, the
+    device busy share and the top kernels by device time; returns
+    (busy ms, wall ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, met = step(model, state, batch)
+        float(met["loss"])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in evs)
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    print(f"{label} profile, 1 step: wall {wall_us / 1e3:.1f} ms, device "
+          f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% "
+          f"busy); top kernels: " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
+              f"x{e.count}" for e in top), flush=True)
+    return busy_us / 1e3, wall_us / 1e3
+
+
+def cp_phase(smoke: Smoke, group):
+    """3 allgather and 3 ring CP steps of full-width qwen3-1.7b (28
+    layers, bf16, T = 4096, all 1.72 B parameters trainable) on the
+    world-size-1 NCCL group, with a 4-rank LPT plan applied to the
+    sequence (a fourth allgather step under the profiler); then one
+    unpermuted non-CP kernel-path step from the same weights."""
+    torch = smoke.torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.context_parallel import simulate_rank_workloads
+    from repro_torch.core.distribution import PLANNERS
+    from repro_torch.core.bam import block_workload
+    from repro_torch.kernels.bam_attention import (
+        bam_bwd_dkv, bam_bwd_dq, bam_flash_attention)
+    from repro_torch.kernels.paged_decode import paged_decode_attention
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.training.steps import make_train_step
+
+    lay = cp_layout()
+    plan = lay["plan"]
+    W = block_workload(lay["bits"], lay["pos"], CP_BLOCK)
+    zz = PLANNERS["zigzag"](W, CP_RANKS, CP_BLOCK)
+    print(f"CP plan ({plan.method}, {CP_RANKS} ranks, block {CP_BLOCK}): "
+          f"makespan {plan.makespan:.0f}, imbalance {plan.imbalance:.4f}; "
+          f"simulated rank workloads (allowed pairs) lpt "
+          f"{lay['loads'].tolist()} vs zigzag "
+          f"{simulate_rank_workloads(zz, lay['bits'], lay['pos']).tolist()} "
+          f"(makespan {zz.makespan:.0f}, imbalance {zz.imbalance:.4f})",
+          flush=True)
+    cfg = get_config("qwen3-1.7b").replace(attn_impl="bam_kernel")
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batches = cp_batches(torch, cfg.vocab_size, lay, 3)
+    def counts():
+        return {"K1 stats": bam_flash_attention.stats_launches,
+                "K2": bam_bwd_dq.launches, "K3": bam_bwd_dkv.launches,
+                "K1": bam_flash_attention.launches,
+                "K4": paged_decode_attention.launches}
+
+    runs = {}
+    bam_flash_attention.stats_launches = 0
+    for fn in (bam_flash_attention, bam_bwd_dq, bam_bwd_dkv,
+               paged_decode_attention):
+        fn.launches = 0
+    for method in ("allgather", "ring"):
+        model = cp_model(torch, cfg, SEED)
+        named = dict(model.named_parameters())
+        state = opt.init(ocfg, named)
+        step = cp_step(cfg, lay, group, ocfg, method)
+        if method == "allgather":
+            n = sum(p.numel() for p in named.values())
+            print(f"{cfg.name}: {n / 1e9:.3f} B parameters, all trainable, "
+                  f"bf16, {cfg.num_layers} layers, d {cfg.d_model}, "
+                  f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                  f"{cfg.head_dim}; CP group of "
+                  f"{torch.distributed.get_world_size(group)} "
+                  f"({torch.distributed.get_backend(group)})",
+                  flush=True)
+        runs[method] = []
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = counts()
+            t0 = time.perf_counter()
+            model, state, met = step(model, state, batch)
+            loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            per = {k: v - before[k] for k, v in counts().items()}
+            runs[method].append(dict(loss=loss, grad_norm=gnorm, ms=ms,
+                                     peak_gib=peak, launches=per))
+            print(f"CP {method} step {i}: loss {loss:.6f}, grad_norm "
+                  f"{gnorm:.6f}, {ms:.1f} ms, peak memory {peak:.2f} GiB; "
+                  f"launches " + ", ".join(f"{k} {v}" for k, v in
+                                           per.items()), flush=True)
+            L = cfg.num_layers
+            smoke.check(per["K1 stats"] == per["K2"] == per["K3"] == L
+                        and per["K1"] == 0 and per["K4"] == 0
+                        and np.isfinite(loss) and np.isfinite(gnorm),
+                        f"CP {method} step {i}: K1 stats, K2, K3 launched "
+                        f"{per['K1 stats']}, {per['K2']}, {per['K3']} times "
+                        f"(one per layer = {L}), K1 residual {per['K1']}, "
+                        f"K4 {per['K4']}; loss and grad_norm finite")
+        if method == "allgather":
+            busy_ms, wall_ms = profile_step(torch, step, model, state,
+                                            batches[0], "CP allgather")
+        del model, state, named, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    total = {k: sum(r["launches"][k] for m in runs for r in runs[m])
+             for k in counts()}
+    smoke.launches["cp"] = {"K1s": total["K1 stats"], "K2": total["K2"],
+                            "K3": total["K3"], "K1": total["K1"],
+                            "K4": total["K4"]}
+    print(f"launches on the CP path (3 allgather + 3 ring steps): "
+          + ", ".join(f"{k} {v}" for k, v in total.items()), flush=True)
+
+    # the unpermuted non-CP step on the kernel path, from the same weights
+    model = cp_model(torch, cfg, SEED)
+    state = opt.init(ocfg, dict(model.named_parameters()))
+    _, _, met = make_train_step(cfg, ocfg)(model, state, batches[0])
+    ref = (float(met["loss"]), float(met["grad_norm"]))
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    for method in ("allgather", "ring"):
+        lc, gc_ = runs[method][0]["loss"], runs[method][0]["grad_norm"]
+        rl, rg = abs(lc - ref[0]) / abs(ref[0]), abs(gc_ - ref[1]) / abs(ref[1])
+        smoke.check(rl <= 2e-2 and rg <= 2e-2,
+                    f"bf16 full width, step 0: CP {method} loss {lc:.6f} vs "
+                    f"non-CP {ref[0]:.6f} (rel {rl:.2e}), grad_norm "
+                    f"{gc_:.6f} vs {ref[1]:.6f} (rel {rg:.2e}); tol 2e-2")
+    smoke.cp = dict(runs=runs, profile_busy_ms=busy_ms,
+                    profile_wall_ms=wall_ms, non_cp_step0=ref)
+
+
+def cp_parity_phase(smoke: Smoke, group):
+    """f32, full width, 2 layers: the CP step in plan layout (both
+    methods; K1 stats, K2, K3) against the plain non-CP step
+    (attn_impl="xla"), from the same weights and batches, 3 steps."""
+    torch = smoke.torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.training.steps import make_train_step
+
+    lay = cp_layout()
+    cfg = get_config("qwen3-1.7b").replace(num_layers=2, dtype="float32")
+    ocfg = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    batches = cp_batches(torch, cfg.vocab_size, lay, 3)
+    runs = {}
+    for name in ("allgather", "ring", "plain"):
+        model = cp_model(torch, cfg, SEED + 8)
+        state = opt.init(ocfg, dict(model.named_parameters()))
+        step = make_train_step(cfg.replace(attn_impl="xla"), ocfg) \
+            if name == "plain" else cp_step(
+                cfg.replace(attn_impl="bam_kernel"), lay, group, ocfg, name)
+        runs[name] = []
+        for batch in batches:
+            model, state, met = step(model, state, batch)
+            runs[name].append((float(met["loss"]), float(met["grad_norm"])))
+        del model, state
+    for method in ("allgather", "ring"):
+        for i, ((lc, gc_), (lp, gp)) in enumerate(zip(runs[method],
+                                                       runs["plain"])):
+            rl, rg = abs(lc - lp) / abs(lp), abs(gc_ - gp) / abs(gp)
+            smoke.check(rl <= 1e-5 and rg <= 1e-4,
+                        f"f32 2 layers full width, step {i}: CP {method} "
+                        f"(kernels) loss {lc:.7f} vs plain non-CP {lp:.7f} "
+                        f"(rel {rl:.2e}, tol 1e-5); grad_norm {gc_:.7f} vs "
+                        f"{gp:.7f} (rel {rg:.2e}, tol 1e-4)")
+
+
+def cp_phases(smoke: Smoke):
+    """Phases 7 and 8 on a NCCL process group of world size 1 (NCCL
+    refuses two ranks on one card), destroyed at the end."""
+    torch = smoke.torch
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        group = dist.group.WORLD
+        cp_phase(smoke, group)
+        gc.collect()
+        torch.cuda.empty_cache()
+        cp_parity_phase(smoke, group)
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="kernels,serving,train",
-                    help="comma-separated subset of kernels,serving,train; "
-                    "the result line needs all three")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}; "
+                    f"the result line needs all of them")
     phases = set(ap.parse_args().phases.split(","))
     import torch
     if not torch.cuda.is_available():
@@ -769,6 +1304,7 @@ def main() -> int:
         k1_cases(smoke)
         bwd_cases(smoke)
         k4_cases(smoke)
+        cp_kernel_cases(smoke)
     if "serving" in phases:
         model, cfg, reqs = serving_phase(smoke)
         decode_profile(smoke, model, cfg, reqs)
@@ -781,6 +1317,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train_parity_phase(smoke)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "cp" in phases:
+        cp_phases(smoke)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
           f"start of the build", flush=True)
 
@@ -788,21 +1328,23 @@ def main() -> int:
         print(f"chip_smoke: {len(smoke.failures)} failure(s):",
               *smoke.failures, sep="\n  ", file=sys.stderr)
         return 1
-    if phases != {"kernels", "serving", "train"}:
+    if phases != set(PHASES):
         print(f"chip_smoke: phases {sorted(phases)} passed; no result line "
               f"for a partial run")
         return 0
-    # launches: each kernel's count on the paths it is on (serving: K1,
-    # K4; train: K1, K2, K3); "launches" is the train path's for K1-K3
+    # launches: each kernel's count on each path it is on (serving: K1,
+    # K4; train: K1, K2, K3; cp: K1 stats, K2, K3); "launches" is the
+    # train path's for K1-K3, the CP path's for K1 stats
     paths = smoke.launches
-    for key in ("K1", "K2", "K3", "K4"):
+    for key in KERNEL_KEYS:
         by_path = {path: counts[key] for path, counts in paths.items()
                    if counts.get(key)}
         smoke.kernels[key]["launches_by_path"] = by_path
         smoke.kernels[key]["launches"] = by_path.get(
-            "train", by_path.get("serving", 0))
-    print(json.dumps({"kernels": [smoke.kernels[k]
-                                  for k in ("K1", "K2", "K3", "K4")]}))
+            "train", by_path.get("cp", by_path.get("serving", 0)))
+    for key, share in smoke.cp_share.items():
+        smoke.kernels[key]["cp_share"] = share
+    print(json.dumps({"kernels": [smoke.kernels[k] for k in KERNEL_KEYS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

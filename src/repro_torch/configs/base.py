@@ -58,8 +58,10 @@ class ModelConfig:
     attn_impl: str = "xla"        # xla | bam_kernel
     decode_kv_replicate: int = 0
     attn_q_chunk: int = 0
-    # context parallelism is a later slice of the port: a set cp_mesh
-    # is rejected by models.layers.run_attention
+    # context parallelism: in the port cp_mesh holds the
+    # torch.distributed.ProcessGroup of the CP ranks (the JAX package
+    # holds a device mesh here); cp_axis names the mesh axis in JAX and
+    # is unused by the port
     cp_mesh: Any = None
     cp_axis: str = "cp"
     cp_method: str = "allgather"

@@ -138,6 +138,62 @@ def repeat_kv(k, n_rep: int):
 
 
 # ---------------------------------------------------------------------------
+# Per-token workload (row-sums of the mask), numpy, for the token
+# distribution planners (core.distribution): O(T * M) from per-modality
+# cumulative counts, never the [T, T] mask
+# ---------------------------------------------------------------------------
+
+def token_workload(bits: np.ndarray, pos: np.ndarray,
+                   window: int = 0) -> np.ndarray:
+    """bits/pos: [T]. Returns float64 [T]: W_i = the number of keys
+    token i attends, the row-sum of ``allowed_mask``."""
+    bits = np.asarray(bits).astype(np.int64)
+    pos = np.asarray(pos, np.int64)
+    T = bits.shape[0]
+    mod = own_modality(bits)
+    inst = instance_id(bits)
+    att = attends_set(bits)
+    nonpad = bits != 0
+
+    W = np.zeros(T, np.float64)
+    for d in np.unique(inst[nonpad]):
+        idx = np.where(nonpad & (inst == d))[0]
+        idx = idx[np.argsort(pos[idx], kind="stable")]
+        m, a, p = mod[idx], att[idx], pos[idx]
+        mods_here = np.unique(m)
+        w = np.zeros(idx.shape[0], np.float64)
+        text_rows = m == TEXT
+        for mm in mods_here:
+            bit_ok = ((a >> int(mm)) & 1) != 0
+            # text queries: modality-mm keys with pos_i - window < pos_j
+            # <= pos_i, counted per modality
+            pos_mm = p[m == mm]                  # ascending (p is sorted)
+            hi = np.searchsorted(pos_mm, p, side="right")
+            lo = np.searchsorted(pos_mm, p - window, side="right") \
+                if window else 0
+            w += np.where(text_rows & bit_ok, hi - lo, 0.0)
+            # modality queries: their whole own stream (the window
+            # constrains text queries only, as in allowed_mask)
+            if mm != TEXT:
+                w += np.where((m == mm) & bit_ok, float((m == mm).sum()),
+                              0.0)
+        W[idx] = w
+    return W
+
+
+def block_workload(bits: np.ndarray, pos: np.ndarray, block: int,
+                   window: int = 0) -> np.ndarray:
+    """Token workloads summed over contiguous blocks of ``block`` tokens
+    (the planners assign whole blocks); the last block is zero-padded."""
+    W = token_workload(bits, pos, window)
+    T = W.shape[0]
+    nb = (T + block - 1) // block
+    padded = np.zeros(nb * block, np.float64)
+    padded[:T] = W
+    return padded.reshape(nb, block).sum(axis=1)
+
+
+# ---------------------------------------------------------------------------
 # Host-side grid compaction (numpy)
 # ---------------------------------------------------------------------------
 

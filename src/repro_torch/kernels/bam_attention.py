@@ -3,7 +3,9 @@ PyTorch versions.
 
 - K1, ``bam_flash_attention``: the counterpart of the Pallas TPU kernel
   ``repro.kernels.bam_attention.bam_flash_attention`` on its dense grid,
-  modes ``"out"`` and ``"residual"`` (``(out, lse)``); ``csrc/bam_fwd.cu``.
+  modes ``"out"``, ``"residual"`` (``(out, lse)``) and ``"stats"`` (the
+  unnormalised ``(acc, m, l)`` context parallelism combines across
+  chunks of keys); ``csrc/bam_fwd.cu``.
 - K2, ``bam_bwd_dq``, and K3, ``bam_bwd_dkv``: the two halves of
   ``bam_flash_attention_bwd`` (dQ; dK/dV folded over GQA) on its dense
   grid; ``csrc/bam_bwd_dq.cu`` and ``csrc/bam_bwd_dkv.cu``. Both
@@ -13,7 +15,8 @@ PyTorch versions.
 The [T, T] mask is never materialised by a kernel: each tile of it is
 evaluated from the int32 bitfield and position vectors. A CPU tensor
 runs the plain version (``*_torch``); a CUDA tensor launches the kernel
-or raises. Each kernel wrapper counts its launches in ``.launches``.
+or raises. Each kernel wrapper counts its launches in ``.launches``;
+K1 counts its stats-mode launches apart, in ``.stats_launches``.
 """
 from __future__ import annotations
 
@@ -24,11 +27,12 @@ import torch
 
 from repro_torch.core import bam
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import NEG_INF, masked_attention
+from repro_torch.kernels.ref import (NEG_INF, masked_attention,  # noqa: F401
+                                     masked_stats)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
-RETURN_MODES = ("out", "residual")
+RETURN_MODES = ("out", "residual", "stats")
 
 
 def bam_flash_attention_torch(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
@@ -36,6 +40,11 @@ def bam_flash_attention_torch(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
                               return_mode: str = "out"):
     """Plain version of K1: dense masked softmax in f32 with the kernel's
     conventions (rows with no allowed key give out = 0, lse = -1e30)."""
+    if return_mode == "stats":
+        # (acc [B,H,Tq,hd], m, l) in f32, p multiplying V in f32
+        mask = bam.allowed_mask(q_bits, kv_bits, q_pos, kv_pos,
+                                window)[:, None]
+        return masked_stats(q, k, v, mask, softcap=softcap)
     out, lse = masked_attention(q, k, v, q_bits, kv_bits, q_pos, kv_pos,
                                 softcap=softcap, window=window)
     return out if return_mode == "out" else (out, lse)
@@ -46,7 +55,7 @@ def _entry():
     fn = _build.library("bam_fwd").bam_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
     f = ctypes.c_float
-    fn.argtypes = [p] * 9 + [i] * 7 + [f, f, i, p]
+    fn.argtypes = [p] * 10 + [i] * 7 + [f, f, i, p]
     fn.restype = i
     return fn
 
@@ -71,10 +80,13 @@ def bam_flash_attention(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
     """BAM attention forward. q: [B,Tq,H,hd]; k/v: [B,Tk,Hkv,hd]; bits
     and positions int32 [B,T*]. Any Tq, Tk (the kernel masks its own
     ragged edge). Returns out [B,Tq,H,hd], or (out, lse [B,H,Tq] f32)
-    for ``return_mode="residual"``."""
+    for ``return_mode="residual"``, or for ``return_mode="stats"`` the
+    f32 (acc [B,H,Tq,hd], m [B,H,Tq], l [B,H,Tq]) with acc = Σ exp(s -
+    m)·V over allowed keys (the kernel writes acc in that layout
+    itself)."""
     if return_mode not in RETURN_MODES:
-        raise ValueError(f"return_mode={return_mode!r}; the port has "
-                         f"{RETURN_MODES} (stats mode is a later slice)")
+        raise ValueError(f"return_mode={return_mode!r}; pick from "
+                         f"{RETURN_MODES}")
     _check_inputs(q, k, v, q_bits, kv_bits, q_pos, kv_pos)
     if q.device.type == "cpu":
         return bam_flash_attention_torch(
@@ -96,22 +108,29 @@ def bam_flash_attention(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
     Tk, Hkv = k.shape[1], k.shape[2]
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    out = torch.empty_like(q)
-    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-           if return_mode == "residual" else None)
+    stats = return_mode == "stats"
+    row = dict(dtype=torch.float32, device=q.device)
+    out = torch.empty((B, H, Tq, hd), **row) if stats else torch.empty_like(q)
+    lse = torch.empty((B, H, Tq), **row) if return_mode != "out" else None
+    lsum = torch.empty((B, H, Tq), **row) if stats else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = _entry()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), q_bits.data_ptr(),
         kv_bits.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(),
+        None if lsum is None else lsum.data_ptr(),
         B, Tq, Tk, H, Hkv, hd, DTYPE_CODES[q.dtype], hd ** -0.5,
         float(softcap), int(window), stream)
     _build.check("bam_fwd", rc)
+    if stats:
+        bam_flash_attention.stats_launches += 1
+        return out, lse, lsum
     bam_flash_attention.launches += 1
     return out if return_mode == "out" else (out, lse)
 
 
 bam_flash_attention.launches = 0
+bam_flash_attention.stats_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernel repro/kernels/bam_attention.py::
 // bam_flash_attention on its dense grid (_bam_fwd_kernel, _fwd_accumulate,
-// _fwd_finish, mask _mask_tile), modes "out" and "residual".
+// _fwd_finish, mask _mask_tile), modes "out", "residual" and "stats".
 //
 // What bounds it on this card: at the serving path's shapes (hd = 128,
 // T in the thousands) attention does ~2·T·T·hd·H multiply-adds on
@@ -25,6 +25,13 @@
 // memory for the same reason. Accumulation is f32; NEG_INF = -1e30 is the
 // masked-score sentinel, and rows with l == 0 give out = 0 and
 // lse = -1e30. The mask rule is bam_mask.cuh's.
+//
+// The "stats" mode (context parallelism combines chunks of keys) stops
+// before the normalisation: the epilogue writes the f32 accumulator
+// acc = sum exp(s - m) V in the layout [B,H,Tq,hd], and m and l [B,H,Tq].
+// Masked pairs select p = 0 and leave m at NEG_INF, so a row with no
+// allowed key in this chunk gives exactly m = -1e30, l = 0, acc = 0,
+// which the cross-chunk combine weighs by exp(-1e30 - m) = 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,14 +45,17 @@ constexpr int BK = 32;     // keys per tile
 constexpr int NT = 128;    // threads per block: two per q row
 constexpr int JN = BK / 2; // scores per thread per tile
 
-template <typename T, int HD>
+// STATS = false: out is T [B,Tq,H,hd], lse f32 [B,H,Tq] or null.
+// STATS = true: out is f32 acc [B,H,Tq,hd], lse receives m, lsum l.
+template <typename T, int HD, bool STATS>
 __global__ void __launch_bounds__(NT)
 bam_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ qbits,
                const int* __restrict__ kbits, const int* __restrict__ qpos,
-               const int* __restrict__ kpos, T* __restrict__ out,
-               float* __restrict__ lse, int Tq, int Tk, int H, int Hkv,
-               float scale, float softcap, int window) {
+               const int* __restrict__ kpos, void* __restrict__ out,
+               float* __restrict__ lse, float* __restrict__ lsum, int Tq,
+               int Tk, int H, int Hkv, float scale, float softcap,
+               int window) {
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 2;  // output columns per thread
   extern __shared__ float smem[];
@@ -146,56 +156,75 @@ bam_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (tq >= Tq) return;
-  const float inv = l > 0.f ? 1.f / fmaxf(l, 1e-30f) : 0.f;
-  T* orow = out + ((size_t)(b * Tq + tq) * H + h) * HD + half;
+  const size_t row = ((size_t)b * H + h) * Tq + tq;  // [B,H,Tq] index
+  if constexpr (STATS) {
+    float* arow = static_cast<float*>(out) + row * HD + half;
 #pragma unroll
-  for (int c = 0; c < NC; ++c) store(orow + 2 * c, acc[c] * inv);
-  if (lse != nullptr && half == 0)
-    lse[((size_t)b * H + h) * Tq + tq] =
-        l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : NEG_INF;
+    for (int c = 0; c < NC; ++c) arow[2 * c] = acc[c];
+    if (half == 0) {
+      lse[row] = m;
+      lsum[row] = l;
+    }
+  } else {
+    const float inv = l > 0.f ? 1.f / fmaxf(l, 1e-30f) : 0.f;
+    T* orow = static_cast<T*>(out) + ((size_t)(b * Tq + tq) * H + h) * HD +
+              half;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) store(orow + 2 * c, acc[c] * inv);
+    if (lse != nullptr && half == 0)
+      lse[row] = l > 0.f ? m + logf(fmaxf(l, 1e-30f)) : NEG_INF;
+  }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool STATS>
 int launch(const void* q, const void* k, const void* v, const int* qb,
            const int* kb, const int* qp, const int* kp, void* out,
-           float* lse, int B, int Tq, int Tk, int H, int Hkv, float scale,
-           float softcap, int window, cudaStream_t stream) {
+           float* lse, float* lsum, int B, int Tq, int Tk, int H, int Hkv,
+           float scale, float softcap, int window, cudaStream_t stream) {
   constexpr int LD = HD + 1;
   const size_t smem =
       sizeof(float) * (BQ * LD + 2 * BK * LD + BQ * (BK + 1)) +
       sizeof(int) * 2 * BK;
-  auto kern = bam_fwd_kernel<T, HD>;
+  auto kern = bam_fwd_kernel<T, HD, STATS>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), qb, kb, qp, kp, static_cast<T*>(out), lse,
-      Tq, Tk, H, Hkv, scale, softcap, window);
+      static_cast<const T*>(v), qb, kb, qp, kp, out, lse, lsum, Tq, Tk, H,
+      Hkv, scale, softcap, window);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/out [B,Tq,H,hd], k/v [B,Tk,Hkv,hd],
-// all contiguous; bits/pos int32 [B,T]; lse f32 [B,H,Tq] or null.
-// Returns cudaGetLastError() after the launch.
+// dtype: 0 = float32, 1 = bfloat16. q [B,Tq,H,hd], k/v [B,Tk,Hkv,hd],
+// all contiguous; bits/pos int32 [B,T]. With lsum null ("out" and
+// "residual"): out [B,Tq,H,hd] in q's type, lse f32 [B,H,Tq] or null.
+// With lsum set ("stats"): out f32 [B,H,Tq,hd] (acc), lse f32 [B,H,Tq]
+// receives m and lsum l. Returns cudaGetLastError() after the launch.
 extern "C" int bam_fwd(const void* q, const void* k, const void* v,
                        const void* q_bits, const void* kv_bits,
                        const void* q_pos, const void* kv_pos, void* out,
-                       void* lse, int B, int Tq, int Tk, int H, int Hkv,
-                       int hd, int dtype, float scale, float softcap,
-                       int window, void* stream) {
+                       void* lse, void* lsum, int B, int Tq, int Tk, int H,
+                       int Hkv, int hd, int dtype, float scale,
+                       float softcap, int window, void* stream) {
   const int* qb = static_cast<const int*>(q_bits);
   const int* kb = static_cast<const int*>(kv_bits);
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(kv_pos);
   float* ls = static_cast<float*>(lse);
+  float* lt = static_cast<float*>(lsum);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define BAM_FWD_CASE(TYPE, HD)                                                \
-  return launch<TYPE, HD>(q, k, v, qb, kb, qp, kp, out, ls, B, Tq, Tk, H,     \
-                          Hkv, scale, softcap, window, st)
+#define BAM_FWD_CASE(TYPE, HD)                                              \
+  return lt != nullptr                                                      \
+             ? launch<TYPE, HD, true>(q, k, v, qb, kb, qp, kp, out, ls, lt, \
+                                      B, Tq, Tk, H, Hkv, scale, softcap,    \
+                                      window, st)                           \
+             : launch<TYPE, HD, false>(q, k, v, qb, kb, qp, kp, out, ls,    \
+                                       nullptr, B, Tq, Tk, H, Hkv, scale,   \
+                                       softcap, window, st)
   if (dtype == 0 && hd == 64) BAM_FWD_CASE(float, 64);
   if (dtype == 0 && hd == 128) BAM_FWD_CASE(float, 128);
   if (dtype == 1 && hd == 64) BAM_FWD_CASE(__nv_bfloat16, 64);

@@ -9,6 +9,10 @@ Dispatch on ``impl``:
                  K3 (dK/dV). CUDA kernels on a CUDA tensor, their plain
                  versions on a CPU tensor.
 
+``bam_attention_stats`` gives K1's unnormalised stats-mode partials for
+context parallelism (``core.context_parallel``), which combines them
+across chunks of keys and owns their gradient.
+
 The kernels take any Tq, Tk and mask their own ragged edge, so unlike
 the JAX op nothing is padded to block multiples and there is no block
 size to choose.
@@ -63,6 +67,31 @@ class BamAttention(torch.autograd.Function):
             q, k, v, out, g, lse, q_bits, kv_bits, q_pos, kv_pos,
             softcap=ctx.softcap, window=ctx.window)
         return dq, dk, dv, None, None, None, None, None, None
+
+
+@torch.no_grad()
+def bam_attention_stats(q, k, v, q_bits, kv_bits, q_pos=None, kv_pos=None,
+                        *, softcap: float = 0.0, window: int = 0,
+                        impl: str = "bam_kernel"):
+    """Unnormalised flash-attention partials for cross-chunk combination:
+    (acc [B,H,Tq,hd] f32 = Σ p·V, m [B,H,Tq], l [B,H,Tq]) from K1's stats
+    mode, the mask evaluated inside the kernel (no [B,H,Tq,Tk] tensor on
+    the card). A forward building block with no gradient of its own, as
+    in the JAX package: differentiate through
+    ``core.context_parallel.cp_attention``."""
+    if impl != "bam_kernel":
+        raise ValueError(f"impl={impl!r}; the stats op has only "
+                         f"'bam_kernel' in the port")
+    B, Tq = q.shape[:2]
+    Tk = k.shape[1]
+    if q_pos is None:
+        q_pos = _default_pos(B, Tq, q.device)
+    if kv_pos is None:
+        kv_pos = _default_pos(B, Tk, q.device)
+    return bam_flash_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), q_bits.contiguous(),
+        kv_bits.contiguous(), q_pos.contiguous(), kv_pos.contiguous(),
+        softcap=softcap, window=window, return_mode="stats")
 
 
 def bam_attention(q, k, v, q_bits, kv_bits, q_pos=None, kv_pos=None, *,

@@ -3,7 +3,8 @@
 Independent of the kernels: it materialises the full boolean mask with
 ``core.bam.allowed_mask`` and runs a numerically stable masked softmax.
 ``masked_attention`` is that softmax with the kernels' conventions; the
-plain versions of K1 and K4 are built on it.
+plain versions of K1 and K4 are built on it. ``masked_stats`` stops
+before the normalisation, for K1's stats mode and context parallelism.
 """
 from __future__ import annotations
 
@@ -42,6 +43,27 @@ def masked_attention(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
     lse = torch.where(denom > 0, m + torch.log(denom.clamp_min(1e-30)),
                       torch.full_like(denom, NEG_INF))
     return out.to(q.dtype), lse[..., 0]
+
+
+def masked_stats(q, k, v, mask, *, softcap: float = 0.0, p_dtype=None):
+    """Unnormalised softmax partials (acc [B,H,Tq,hd] f32 = Σ exp(s - m)·V,
+    m [B,H,Tq], l [B,H,Tq]) over ``mask`` (broadcastable to [B,H,Tq,Tk]),
+    scores in f32; p is rounded to ``p_dtype`` (if given) before the
+    product with V. A row with no allowed key gives exactly m = -1e30,
+    l = 0, acc = 0: p is selected, never multiplied by the mask."""
+    n_rep = q.shape[2] // k.shape[2]
+    kf = bam.repeat_kv(k, n_rep).float()
+    vf = bam.repeat_kv(v, n_rep).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * q.shape[-1] ** -0.5
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    if p_dtype is not None:
+        p = p.to(p_dtype).float()
+    return torch.einsum("bhqk,bkhd->bhqd", p, vf), m, l
 
 
 def bam_attention_ref(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,

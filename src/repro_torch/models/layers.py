@@ -13,6 +13,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bam import repeat_kv
+from repro_torch.core.context_parallel import cp_attention
 from repro_torch.kernels import ops
 
 ATTN_IMPLS = ("xla", "bam_kernel")
@@ -154,19 +155,20 @@ def run_attention(p: Attention, cfg: ModelConfig, x, *, q_pos, mask_fn,
     with k/v the projected (and, with ``rope``, roped) [B,T,Hkv,hd] the
     serving prefill keeps.
 
-    With ``bits`` given and ``cfg.attn_impl == "bam_kernel"``, attention
-    runs through the BAM op (K1 forward, K2/K3 backward) with ``window``
-    as the static sliding window; otherwise the plain masked ``sdpa``
-    with ``mask_fn()``'s mask, broadcastable to [B,1,T,T] (built only on
-    that path; the encoders pass an all-true one). Fresh K rotates by
-    the query positions, pads included."""
+    With ``bits`` given and ``cfg.cp_mesh`` set, attention is context
+    parallel (``core.context_parallel.cp_attention`` over the process
+    group ``cfg.cp_mesh``, method ``cfg.cp_method``, per-chunk math
+    ``cfg.attn_impl``): x is then this rank's slice of a sequence in
+    plan layout, with its positions and bits. Else, with ``bits`` and
+    ``cfg.attn_impl == "bam_kernel"``, attention runs through the BAM op
+    (K1 forward, K2/K3 backward). ``window`` is the static sliding window
+    of both. Otherwise the plain masked ``sdpa`` with ``mask_fn()``'s
+    mask, broadcastable to [B,1,T,T] (built only on that path; the
+    encoders pass an all-true one). Fresh K rotates by the query
+    positions, pads included."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={cfg.attn_impl!r}; the port has "
                          f"{ATTN_IMPLS} (bam_interpret is JAX-only)")
-    if cfg.cp_mesh is not None:
-        raise NotImplementedError(
-            "context parallelism (cp_mesh) is a later slice of the port "
-            "(ROADMAP.md queue 1, slice B)")
     if cfg.mm is not None and cfg.mm.mrope_sections:
         raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md)")
     if cfg.attn_q_chunk:
@@ -177,7 +179,12 @@ def run_attention(p: Attention, cfg: ModelConfig, x, *, q_pos, mask_fn,
     if rope:
         q = apply_rope(q, q_pos, cfg.rope_theta)
         k = apply_rope(k, q_pos, cfg.rope_theta)
-    if cfg.attn_impl == "bam_kernel" and bits is not None:
+    if cfg.cp_mesh is not None and bits is not None:
+        out = cp_attention(
+            cfg.cp_mesh, q, k, v, bits, bits, q_pos, q_pos,
+            method=cfg.cp_method, softcap=cfg.attn_softcap, window=window,
+            impl=cfg.attn_impl)
+    elif cfg.attn_impl == "bam_kernel" and bits is not None:
         out = ops.bam_attention(
             q, k, v, bits, bits, q_pos, q_pos, softcap=cfg.attn_softcap,
             window=window, impl="bam_kernel")

@@ -104,10 +104,13 @@ def _block(cfg: ModelConfig, p: Block, x, batch, layer_idx: int):
     """One layer. Returns (x, (k, v)) with the layer's projected, roped
     K/V (kept by the serving prefill)."""
     window = layer_window(cfg, layer_idx)
-    # the BAM kernel takes one static window for the model; gemma2's
-    # per-layer alternation stays on the plain path, as in JAX
+    # the BAM kernel and context parallelism take one static window for
+    # the model; gemma2's per-layer alternation stays on the plain path,
+    # as in JAX (a cp_mesh is then ignored: each rank computes full
+    # attention)
     kernel_bits = None
-    if (cfg.attn_impl != "xla" and batch.get("bits") is not None
+    if ((cfg.attn_impl != "xla" or cfg.cp_mesh is not None)
+            and batch.get("bits") is not None
             and not cfg.local_global_pattern):
         kernel_bits = batch["bits"]
 

@@ -13,6 +13,12 @@ which other requests share its batch.
 Decode attention runs through the dense-gather reference
 (``attn="xla"``) or K4 (``attn="kernel"``), whose step list comes from
 ``build_decode_grid``.
+
+A request submitted with a ``ContextPlan`` is prefilled in plan layout:
+its prompt is permuted by the plan (bits and positions travel with
+their tokens, so attention is unchanged), its pages record their CP
+rank (``plan_page_owners``), and its first token comes from the row
+that holds the last prompt token.
 """
 from __future__ import annotations
 
@@ -26,11 +32,13 @@ import torch
 
 from repro_torch.core import bam
 from repro_torch.device import resolve_device
+from repro_torch.parallel.plan import ContextPlan
 from repro_torch.serving import model as M
 from repro_torch.serving.paged_cache import (NULL_PAGE, PageTable,
                                              build_decode_grid,
                                              decode_grid_bucket,
-                                             init_paged_cache)
+                                             init_paged_cache,
+                                             plan_page_owners)
 
 
 class InfeasibleRequest(ValueError):
@@ -64,6 +72,7 @@ class Request:
     positions: Optional[np.ndarray] = None  # [T] int32 (None = arange)
     gen_bits: int = 0
     eos_id: Optional[int] = None
+    plan: Optional[ContextPlan] = None      # prefill in ContextPlan layout
     generated: List[int] = dataclasses.field(default_factory=list)
     next_idx: int = 0                       # next logical cache index
     next_pos: int = 0                       # next semantic position
@@ -105,11 +114,12 @@ class ServingEngine:
                max_new_tokens: int = 16, eos_id: Optional[int] = None,
                gen_bits: Optional[int] = None, plan=None) -> int:
         """Queue a request; returns its rid. ``bits`` (int32 [T]) carry
-        the prompt's BAM bitfields (None = causal text)."""
-        if plan is not None:
-            raise NotImplementedError(
-                "ContextPlan prefill needs context parallelism, a later "
-                "slice of the port (ROADMAP.md)")
+        the prompt's BAM bitfields (None = causal text); ``plan``, a
+        ``ContextPlan`` covering the page-padded prompt, lays the prompt
+        out in plan order."""
+        if plan is not None and not isinstance(plan, ContextPlan):
+            raise TypeError(f"plan must be a ContextPlan, got "
+                            f"{type(plan).__name__}")
         rid = self._next_rid
         r = Request(
             rid=rid, tokens=np.asarray(tokens, np.int32).reshape(-1),
@@ -120,7 +130,7 @@ class ServingEngine:
             np.asarray(positions, np.int32).reshape(-1),
             gen_bits=int(gen_bits) if gen_bits is not None
             else bam.text_token(),
-            eos_id=eos_id)
+            eos_id=eos_id, plan=plan)
         if r.bits is not None and len(r.bits) != len(r.tokens):
             raise ValueError(
                 f"request {rid}: bits length {len(r.bits)} != prompt "
@@ -179,6 +189,16 @@ class ServingEngine:
         pos[:T] = r.positions if r.positions is not None \
             else np.arange(T, dtype=np.int32)
 
+        last_row = T - 1
+        if r.plan is not None:
+            layout = r.plan.apply(Tp)
+            perm = layout["perm"]
+            tokens, bits, pos = tokens[perm], bits[perm], pos[perm]
+            last_row = int(layout["inv_perm"][T - 1])
+            owners = plan_page_owners(layout, self.table.page_size)
+            self.table.page_owner[self.table.pages_of(r.rid)[:len(owners)]] \
+                = owners
+
         idx = np.arange(Tp)
         self.table.write(r.rid, idx, bits, pos)
         page, slot = self.table.coords(r.rid, idx)
@@ -190,7 +210,7 @@ class ServingEngine:
             self._tensor(page), self._tensor(slot))
         r.next_idx = Tp
         r.next_pos = T
-        self._emit(r, int(torch.argmax(logits[0, T - 1])))
+        self._emit(r, int(torch.argmax(logits[0, last_row])))
 
     def _emit(self, r: Request, token: int) -> None:
         r.generated.append(token)

@@ -14,6 +14,9 @@ entries and empty batch rows point at it and mask out.
 ``build_decode_grid`` turns the table and the rows' query bitfields into
 the step list K4 consumes: per request, only the pages its bitfield can
 reach (``bam.build_block_map`` with block_q=1, block_k=page_size).
+
+A prompt prefilled in ContextPlan layout has its pages' CP ranks
+recorded in ``PageTable.page_owner`` (``plan_page_owners``).
 """
 from __future__ import annotations
 
@@ -45,6 +48,9 @@ class PageTable:
         self.page_size = page_size
         self.bits = np.zeros((num_pages, page_size), np.int32)
         self.pos = np.full((num_pages, page_size), -1, np.int32)
+        #: CP rank of each page's slots after a plan-layout prefill (-1 =
+        #: none); informational, attention never reads it
+        self.page_owner = np.full(num_pages, -1, np.int32)
         self._free: List[int] = list(range(num_pages - 1, NULL_PAGE, -1))
         self._pages: Dict[int, List[int]] = {}
         self._len: Dict[int, int] = {}
@@ -80,6 +86,7 @@ class PageTable:
         for p in self._pages.pop(rid, ()):
             self.bits[p] = 0
             self.pos[p] = -1
+            self.page_owner[p] = -1
             self._free.append(p)
         self._len.pop(rid, None)
 
@@ -207,6 +214,22 @@ def build_decode_grid(table: PageTable, rids: Sequence[Optional[int]],
         req=np.asarray(req, np.int32), page=np.asarray(page, np.int32),
         first=np.asarray(first, np.int32), last=np.asarray(last, np.int32),
         active=np.asarray(active, np.int32), n_dense_steps=n_dense)
+
+
+def plan_page_owners(layout: Dict, page_size: int) -> np.ndarray:
+    """CP rank of each page of a prompt written in ContextPlan layout.
+
+    ``layout`` is ``ContextPlan.apply(seq_len)``'s dict; slot j of the
+    prompt holds source token ``perm[j]`` and the ranks' slot counts
+    differ by at most one, so each rank's tokens are a contiguous run of
+    slots. Returns [n_pages] int32 rank ids; a page straddling two runs
+    belongs to the rank of its first slot."""
+    n = len(layout["perm"])
+    ranks = int(layout["num_ranks"])
+    base, extra = divmod(n, ranks)
+    counts = [base + (1 if r < extra else 0) for r in range(ranks)]
+    slot_rank = np.repeat(np.arange(ranks, dtype=np.int32), counts)
+    return slot_rank[np.arange(-(-n // page_size)) * page_size]
 
 
 def decode_grid_bucket(n_steps: int, granule: int = 16) -> int:

@@ -12,15 +12,24 @@ backward never computes a frozen weight's gradient; through the frozen
 LLM it computes input gradients only (with ``attn_impl="bam_kernel"``,
 K2 and K3 on every layer), down to the projector.
 
+``make_cp_train_step(cfg, layout, group)`` -> context-parallel training
+(Cornstarch §4.3) on the ranks of a ``torch.distributed`` process group:
+each rank permutes the batch to the ``ContextPlan`` layout, keeps its
+own run of tokens, and attention crosses ranks through
+``core.context_parallel``; loss and gradients equal the unpermuted
+``make_train_step``'s.
+
 A step updates the parameters in place and returns
 ``(params, opt_state, metrics)`` like the JAX step; metrics hold 0-dim
 tensors (read them with ``float``, which waits for the device).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -45,14 +54,13 @@ def cross_entropy(logits, labels, valid=None):
     return (nll * w).sum() / torch.clamp(w.sum(), min=1.0)
 
 
-def chunked_cross_entropy(h, model, cfg: ModelConfig, labels, valid=None,
-                          chunk: Optional[int] = None):
-    """h: [B,T,d] final hidden. Sums the NLL over sequence chunks so
-    only [B,chunk,V] logits exist at a time (recomputed in backward)."""
+def _nll_sum(h, model, cfg: ModelConfig, labels, valid=None,
+             chunk: Optional[int] = None):
+    """(Σ w·NLL, Σ w) over [B,T] from the final hidden h [B,T,d], w the
+    ``valid`` weights (1 if None). The sum runs over sequence chunks of
+    ``cfg.loss_chunk`` when T divides by it, so only [B,chunk,V] logits
+    exist at a time (recomputed in backward)."""
     B, T_, _ = h.shape
-    c = chunk or cfg.loss_chunk
-    if not c or T_ % c != 0:
-        return cross_entropy(T.unembed(model, cfg, h), labels, valid)
     w_all = torch.ones(labels.shape, device=h.device) if valid is None \
         else valid.float()
 
@@ -62,11 +70,26 @@ def chunked_cross_entropy(h, model, cfg: ModelConfig, labels, valid=None,
         ll = torch.gather(logits, -1, lc.long()[..., None])[..., 0]
         return ((lse - ll) * wc).sum()
 
+    c = chunk or cfg.loss_chunk
+    if not c or T_ % c != 0:
+        return f(h, labels, w_all), w_all.sum()
     tot = torch.zeros((), device=h.device)
     for s in range(0, T_, c):
         tot = tot + checkpoint(f, h[:, s:s + c], labels[:, s:s + c],
                                w_all[:, s:s + c], use_reentrant=False)
-    return tot / torch.clamp(w_all.sum(), min=1.0)
+    return tot, w_all.sum()
+
+
+def chunked_cross_entropy(h, model, cfg: ModelConfig, labels, valid=None,
+                          chunk: Optional[int] = None):
+    """h: [B,T,d] final hidden. Mean NLL over ``valid`` positions, summed
+    over sequence chunks (``_nll_sum``)."""
+    B, T_, _ = h.shape
+    c = chunk or cfg.loss_chunk
+    if not c or T_ % c != 0:
+        return cross_entropy(T.unembed(model, cfg, h), labels, valid)
+    tot, cnt = _nll_sum(h, model, cfg, labels, valid, c)
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -120,6 +143,100 @@ def make_train_step(cfg: ModelConfig, ocfg: Optional[opt.AdamWConfig] = None,
         _, opt_state, om = opt.update(ocfg, grads, opt_state, params,
                                       frozen_mask)
         return model, opt_state, {"loss": loss.detach(), **metrics, **om}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Context-parallel train step (Cornstarch §4.3)
+# ---------------------------------------------------------------------------
+
+#: batch keys whose token axis follows the CP permutation -> token axis
+#: (pos3 is [3, B, T]: M-RoPE position ids travel with their tokens)
+_CP_TOKEN_KEYS = {"tokens": 1, "labels": 1, "positions": 1, "bits": 1,
+                  "valid": 1, "inputs_embeds": 1, "embed_mask": 1,
+                  "pos3": 2}
+
+
+def make_cp_train_step(cfg: ModelConfig, layout, group,
+                       ocfg: Optional[opt.AdamWConfig] = None, *,
+                       method: str = "allgather",
+                       frozen_mask: Optional[Dict[str, bool]] = None):
+    """Context-parallel LM train step, ``step(model, opt_state, batch)``,
+    to be called on every rank of ``group`` (a ``torch.distributed``
+    ProcessGroup) with the same whole batch and the same weights.
+
+    ``layout`` is ``ContextPlan.apply(seq_len)``'s dict. Each step
+    permutes every token-axis batch tensor to plan layout by
+    ``layout["perm"]``, keeps this rank's contiguous run of seq_len/G
+    tokens (positions and bits travel with them) and runs the ordinary
+    loss there, attention going through
+    ``core.context_parallel.cp_attention`` (``method``: allgather or
+    ring; per-chunk math ``cfg.attn_impl``). The cross-entropy's sum and
+    count are all-reduced over the group, and so is every trainable
+    gradient before AdamW, so every rank takes the same update and the
+    loss and gradients equal ``make_train_step``'s on the unpermuted
+    batch."""
+    ocfg = ocfg or opt.AdamWConfig()
+    if not isinstance(group, dist.ProcessGroup):
+        raise TypeError(f"make_cp_train_step needs a torch.distributed "
+                        f"ProcessGroup, got {type(group).__name__}")
+    G = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    perm_np = layout["perm"]
+    seq_len = len(perm_np)
+    if seq_len % G:
+        raise ValueError(
+            f"seq_len {seq_len} is not divisible by the {G} ranks of the "
+            f"CP group; pad the sequence to a rank multiple before "
+            f"planning")
+    if layout["num_ranks"] != G:
+        # exact on any group size, but the plan's balance holds only
+        # when its rank slices are the group's
+        warnings.warn(
+            f"ContextPlan was balanced for {layout['num_ranks']} ranks "
+            f"but the CP group has {G}; results are exact but the planned "
+            f"load balance is lost", stacklevel=2)
+    cp_cfg = cfg.replace(cp_mesh=group, cp_method=method, attn_q_chunk=0)
+    mod = api.module_for(cp_cfg)
+    local = slice(rank * (seq_len // G), (rank + 1) * (seq_len // G))
+
+    def shard(batch):
+        """This rank's run of the batch in plan layout."""
+        out = dict(batch)
+        for key, axis in _CP_TOKEN_KEYS.items():
+            x = batch.get(key)
+            if x is not None:
+                perm = torch.as_tensor(perm_np[local], device=x.device)
+                out[key] = torch.index_select(x, axis, perm)
+        return out
+
+    def step(model, opt_state, batch):
+        if batch.get("bits") is None:
+            # without bits run_attention cannot dispatch to cp_attention,
+            # and each rank would attend over its own run alone
+            raise ValueError(
+                "make_cp_train_step needs batch['bits'] (BAM bitfields); "
+                "use bam.causal_bits for pure-text batches")
+        params = dict(model.named_parameters())
+        pb = shard(batch)
+        h = mod.hidden(model, cp_cfg, pb)
+        tot, cnt = _nll_sum(h, model, cp_cfg, pb["labels"], pb.get("valid"))
+        sums = torch.stack([tot.detach(), cnt.detach()])
+        dist.all_reduce(sums, group=group)
+        denom = torch.clamp(sums[1], min=1.0)
+        grads = _grads(tot / denom, params)
+        for name, p in params.items():
+            if p.requires_grad:
+                # every rank must join every all-reduce: an unused
+                # trainable leaf contributes zeros
+                if grads[name] is None:
+                    grads[name] = torch.zeros_like(p)
+                dist.all_reduce(grads[name], group=group)
+        loss = sums[0] / denom
+        _, opt_state, om = opt.update(ocfg, grads, opt_state, params,
+                                      frozen_mask)
+        return model, opt_state, {"loss": loss, "ce": loss, **om}
 
     return step
 

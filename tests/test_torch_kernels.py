@@ -111,9 +111,15 @@ def test_ops_rejects_what_the_port_lacks():
     with pytest.raises(ValueError, match="bam_interpret"):
         tops.bam_attention(q, k, v, bits, bits, pos, pos,
                            impl="bam_interpret")
-    with pytest.raises(ValueError, match="stats"):
+    with pytest.raises(ValueError, match="return_mode='lse'"):
         bam_flash_attention(q, k, v, bits, bits, pos, pos,
-                            return_mode="stats")
+                            return_mode="lse")
+    # the stats mode (context parallelism) runs: acc [B,H,T,hd], m, l
+    acc, m, l = bam_flash_attention(q, k, v, bits, bits, pos, pos,
+                                    return_mode="stats")
+    assert acc.shape == (q.shape[0], q.shape[2], q.shape[1], q.shape[3])
+    assert m.shape == l.shape == acc.shape[:3]
+    assert bam_flash_attention.stats_launches == 0
     # the op has a backward now (tests/test_torch_bwd.py); on the CPU it
     # runs the plain versions of K1, K2 and K3 and never launches
     tops.bam_attention(q.requires_grad_(), k, v, bits, bits, pos, pos,

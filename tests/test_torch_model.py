@@ -135,7 +135,7 @@ def test_entry_points_refuse_what_the_port_lacks():
                      generator=torch.Generator().manual_seed(0))
     _, tb = _batch(cfg.vocab_size)
     for bad, err in ((dict(attn_impl="bam_interpret"), ValueError),
-                     (dict(cp_mesh=object()), NotImplementedError)):
+                     (dict(cp_mesh=object()), TypeError)):
         with pytest.raises(err):
             api.forward(model, cfg.replace(**bad), tb)
     with pytest.raises(ValueError, match="decode_kv_replicate=3"):

@@ -13,11 +13,13 @@ import jax
 from repro.configs.base import ModelConfig as JModelConfig
 from repro.configs.paper_mllm import llm_config as j_llm_config
 from repro.models import api as japi
+from repro.parallel import plan_context as j_plan_context
 from repro.serving import ServingEngine as JServingEngine
 from repro_torch.bridge import from_jax_params
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.paper_mllm import llm_config
 from repro_torch.core import bam
+from repro_torch.parallel import plan_context
 from repro_torch.serving import (InfeasibleRequest, PageTable,
                                  ServingEngine, init_paged_cache)
 
@@ -72,6 +74,48 @@ def test_engine_matches_jax_engine(weights, kind, path):
                             else r["bits"].astype(np.uint32)) for r in reqs])
     got = _run(_engine(model, cfg, t_attn, t_impl), reqs)
     assert got == want
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_plan_prefill_matches_jax_and_planless(weights, path):
+    """Prompts prefilled in a 4-rank LPT plan's layout: the same greedy
+    tokens as the JAX engine with the same plan and as the plan-less
+    run, and the pages record their CP ranks."""
+    jcfg, params, cfg, model = weights
+    (j_impl, j_attn), (t_impl, t_attn) = PATHS[path]
+    reqs = _requests("multimodal") + _requests("text")[:1]
+    plans, jplans = [], []
+    for r in reqs:
+        T = len(r["tokens"])
+        Tp = -(-T // 8) * 8                    # the page-padded prompt
+        bits = np.zeros(Tp, np.int32)
+        bits[:T] = r["bits"] if r.get("bits") is not None \
+            else bam.text_token()
+        pos = np.full(Tp, -1, np.int32)
+        pos[:T] = r["positions"] if r.get("positions") is not None \
+            else np.arange(T)
+        plans.append(plan_context(bits, pos, 4, block_size=4))
+        jplans.append(j_plan_context(bits.astype(np.uint32), pos, 4,
+                                     block_size=4))
+        assert plans[-1].assignment == jplans[-1].assignment
+    jeng = JServingEngine(params, jcfg.replace(attn_impl=j_impl),
+                          num_pages=24, page_size=8, max_batch=2, attn=j_attn)
+    want = _run(jeng, [dict(r, plan=jp, bits=None if r.get("bits") is None
+                            else r["bits"].astype(np.uint32))
+                       for r, jp in zip(reqs, jplans)])
+    eng = _engine(model, cfg, t_attn, t_impl)
+    rids = [eng.submit(**r, plan=pl) for r, pl in zip(reqs, plans)]
+    owners = eng.table.page_owner.copy()
+    eng.step()                                 # admits and prefills two
+    owners_after = eng.table.page_owner.copy()
+    got = eng.run()
+    got = [got[r] for r in rids]
+    planless = _run(_engine(model, cfg, t_attn, t_impl), reqs)
+    assert got == want == planless
+    assert (owners == -1).all()
+    # 16 slots over 4 ranks, 8-slot pages: ranks 0 and 2 own the pages
+    assert sorted(set(owners_after.tolist()) - {-1}) == [0, 2]
+    assert (eng.table.page_owner == -1).all()  # freed pages forget
 
 
 @pytest.mark.parametrize("cfg_kw", [
@@ -141,10 +185,16 @@ def test_engine_refusals(weights):
         eng.submit(np.arange(8), max_new_tokens=15)
     assert e.value.needed_pages == 6 and e.value.capacity == 3
     assert not eng.queue and not eng.requests
-    with pytest.raises(NotImplementedError, match="ContextPlan"):
+    with pytest.raises(TypeError, match="ContextPlan"):
         eng.submit(np.arange(4), plan=object())
     rid = eng.submit(np.arange(6), max_new_tokens=4)
     assert rid == 0 and len(eng.run()[rid]) == 4
+    # a ContextPlan prefill runs (tokens checked in
+    # test_plan_prefill_matches_jax_and_planless)
+    bits, pos = bam.build_sample_bits([("text", 0, 8)], 8)
+    rid = eng.submit(np.arange(8), max_new_tokens=2,
+                     plan=plan_context(bits, pos, 2, block_size=4))
+    assert len(eng.run()[rid]) == 2
 
 
 def test_paged_cache_guards():
