@@ -4,6 +4,7 @@ NVIDIA GPU. Run from the root of the repository:
 
     python3 chip_smoke.py                       # every phase
     python3 chip_smoke.py --phases kernels      # phases 1-2 only
+    python3 chip_smoke.py --phases compact      # phases 1, 2b only
     python3 chip_smoke.py --phases kernels,cp   # phases 1-2, 7-8
 
 Phases (any failure exits non-zero and prints no result line; the result
@@ -30,6 +31,23 @@ line is printed only when every phase ran and passed):
      against one 1024-key ring chunk with rows that see no key there
      (exactly m = -1e30, l = 0, acc = 0); the four chunks' stats combined
      against one K1 residual call; K2 and K3 at Tq 1024, Tk 4096.
+2b. ``compact``: the compacted grid (a ``BlockMask`` built at the
+   kernels' 64 x 32 tile, walked as CSR rows).
+   - At the vlm layout (q [1,1600,32,128], k/v [1,1600,8,128]) in bf16
+     and f32, plus softcap 50 / window 256 with a map built for that
+     window: K1c in its three modes, K2c and K3c each within ``compare``
+     of its plain version under the same map and torch.equal to the dense
+     kernel; a pruned map (one active tile with allowed pairs dropped
+     from both lists) agrees with its plain version and differs from the
+     dense kernels; times, bound and SDPA's time beside the dense ones.
+   - At ``random_multimodal_bits(4096, mode, seed=0)`` for ep, ee and mp
+     in bf16: active and dense steps, skip fraction, dense and compacted
+     times of K1, K2, K3, and torch.equal between the two grids.
+   - The path end to end: ``ops.bam_attention(impl="bam_kernel",
+     block_map=bm)`` forward and ``torch.autograd.grad`` for q, k, v.
+     Launch counts are zeroed just before and read just after: K1c, K2c
+     and K3c once each, no dense kernel; output and gradients
+     torch.equal to the same call without a map.
 3. Serve 8 requests (6 text, 2 multimodal, 32 new tokens each) through
    ``ServingEngine(attn="kernel")`` at the full width and depth of
    ``llm_config("M")`` (Llama-3.1-8B widths) in bf16, random weights from
@@ -50,11 +68,14 @@ line is printed only when every phase ran and passed):
    frozen 32-layer Llama-3.1-8B-width LLM with attn_impl="bam_kernel"),
    bf16, B = 1, text_len 1024 (merged 1600), over ``MultimodalDataset``
    batches. Launch counts are zeroed just before and read just after:
-   K1, K2 and K3 must each launch 32 times per step. Frozen parameters
+   K2 and K3 must each launch 32 times per step, K1 once per layer and,
+   under the config's ``remat`` (on for ``llm_config("M")``), once more
+   in the backward's recompute: 64. Frozen parameters
    must be bit-identical afterwards (torch.equal against a host copy),
    the projector must have moved, every loss must be finite. A
    torch.profiler window over a fourth step prints the device busy share
-   and the top kernels.
+   and the top kernels; a fifth step without remat prints its time and
+   peak memory beside the remat steps'.
 6. Train parity: the same model at f32 with 2 LLM and 2 encoder layers at
    full width; the kernel path and the plain path (attn_impl="xla"), from
    the same weights and batches, give the same loss (rel 1e-5) and
@@ -64,9 +85,11 @@ line is printed only when every phase ran and passed):
    the sequence: 3 allgather and 3 ring steps of ``make_cp_train_step``
    on full-width qwen3-1.7b (28 layers, bf16, all 1.72 B parameters
    trainable, B = 1, T = 4096), from the same seeded weights. Launch
-   counts are zeroed just before and read just after each step: K1
-   stats, K2 and K3 must launch 28 times per step, K1 residual and K4
-   never. A fourth allgather step runs under the profiler. One
+   counts are zeroed just before and read just after each step: K2 and
+   K3 must launch 28 times per step, K1 stats 28 or, under the config's
+   ``remat`` (on for qwen3-1.7b), 56; K1 residual and K4 never. A fourth
+   allgather step runs under the profiler, and a fifth without remat
+   prints its time and peak memory. One
    unpermuted non-CP step on the kernel path must agree with step 0 of
    both runs within rel 2e-2 (bf16).
 8. CP parity: at f32, full width, 2 layers, the CP step (both methods,
@@ -91,8 +114,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("kernels", "serving", "train", "cp")
-KERNEL_KEYS = ("K1", "K1s", "K2", "K3", "K4")
+PHASES = ("kernels", "compact", "serving", "train", "cp")
+KERNEL_KEYS = ("K1", "K1s", "K1c", "K2", "K2c", "K3", "K3c", "K4")
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SEED = 0
@@ -678,6 +701,378 @@ def cp_kernel_cases(smoke: Smoke):
 
 
 # ---------------------------------------------------------------------------
+# Phase compact: the compacted-grid kernels and the op's block_map= path
+# ---------------------------------------------------------------------------
+
+COMPACT_T, COMPACT_LAYOUTS = 4096, ("ep", "ee", "mp")
+
+
+def kernel_counts():
+    """Every launch counter of the port's kernels, by kernel key."""
+    from repro_torch.kernels.bam_attention import (
+        bam_bwd_dkv, bam_bwd_dq, bam_flash_attention)
+    from repro_torch.kernels.paged_decode import paged_decode_attention
+    return {"K1": bam_flash_attention.launches,
+            "K1s": bam_flash_attention.stats_launches,
+            "K1c": bam_flash_attention.compact_launches,
+            "K2": bam_bwd_dq.launches, "K2c": bam_bwd_dq.compact_launches,
+            "K3": bam_bwd_dkv.launches, "K3c": bam_bwd_dkv.compact_launches,
+            "K4": paged_decode_attention.launches}
+
+
+def zero_counts() -> None:
+    from repro_torch.kernels.bam_attention import (
+        bam_bwd_dkv, bam_bwd_dq, bam_flash_attention)
+    from repro_torch.kernels.paged_decode import paged_decode_attention
+    for fn in (bam_flash_attention, bam_bwd_dq, bam_bwd_dkv,
+               paged_decode_attention):
+        fn.launches = 0
+    bam_flash_attention.stats_launches = 0
+    for fn in (bam_flash_attention, bam_bwd_dq, bam_bwd_dkv):
+        fn.compact_launches = 0
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def pruned_map(bm, mask):
+    """``bm`` without one active tile that holds allowed pairs (``mask``
+    [Tq, Tk] bool): the first such k tile of the middle q block."""
+    from repro_torch.core import bam
+    active = bm.active_tiles()
+    iq = bm.nq // 2
+    rows = mask[iq * bm.block_q:(iq + 1) * bm.block_q]
+    ik = next(j for j in np.flatnonzero(active[iq])
+              if bool(rows[:, j * bm.block_k:(j + 1) * bm.block_k].any()))
+    active[iq, ik] = False
+    return bam.block_map_from_tiles(active, bm.block_q, bm.block_k,
+                                    bm.window), (iq, int(ik))
+
+
+def compact_kernel_cases(smoke: Smoke):
+    """K1 (three modes), K2 and K3 on the compacted grid at the vlm layout
+    (q [1,1600,32,128], k/v [1,1600,8,128]), bf16 and f32, plus softcap
+    50 / window 256 with a map built for that window: each within
+    ``compare`` of its plain version under the same map and equal
+    (torch.equal) to the dense kernel; a pruned map (one active tile with
+    allowed pairs dropped from both lists) agrees with its plain version
+    and differs from the dense kernel."""
+    torch = smoke.torch
+    from repro_torch.core import bam
+    from repro_torch.kernels.bam_attention import (
+        BLOCK_K, BLOCK_Q, RETURN_MODES, bam_bwd_dkv, bam_bwd_dkv_torch,
+        bam_bwd_dq, bam_bwd_dq_torch, bam_flash_attention,
+        bam_flash_attention_torch, bwd_delta)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    H, Hkv, hd, T = 32, 8, 128, 1600
+    bits_np, pos_np = bam.build_sample_bits(vlm_segments(T), T)
+    bits = torch.from_numpy(bits_np).cuda()[None]
+    pos = torch.from_numpy(pos_np).cuda()[None]
+    cases = [(dt, cap, win) for cap, win in ((0.0, 0), (50.0, 256))
+             for dt in ("bfloat16", "float32")]
+    headline = ("bfloat16", 0.0, 0)
+    for dt, softcap, window in cases:
+        dtype = getattr(torch, dt)
+        q, do = (torch.randn((1, T, H, hd), generator=gen,
+                             device="cuda").to(dtype) for _ in range(2))
+        k, v = (torch.randn((1, T, Hkv, hd), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        bm = bam.build_block_map(bits_np, bits_np, pos_np, pos_np, BLOCK_Q,
+                                 BLOCK_K, window)
+        fargs = (q, k, v, bits, bits, pos, pos)
+        kw = dict(softcap=softcap, window=window)
+        name = (f"T={T} vlm layout {dt} softcap={softcap} window={window} "
+                f"({bm.n_steps} of {bm.n_dense_steps} steps)")
+        errs = {}
+        for mode in RETURN_MODES:
+            got = bam_flash_attention(*fargs, return_mode=mode, block_map=bm,
+                                      **kw)
+            dense = bam_flash_attention(*fargs, return_mode=mode, **kw)
+            torch.cuda.synchronize()
+            plain = bam_flash_attention_torch(*fargs, return_mode=mode,
+                                              block_map=bm, **kw)
+            if mode == "stats":
+                err, ratio = compare_stats(got, plain, dt)
+                err_lse = 0.0
+            else:
+                err, ratio = compare(as_tuple(got)[0], as_tuple(plain)[0], dt)
+                err_lse = (float((got[1] - plain[1]).abs().max())
+                           if mode == "residual" else 0.0)
+            equal = all(torch.equal(a, b) for a, b in
+                        zip(as_tuple(got), as_tuple(dense)))
+            errs[mode] = (err, ratio)
+            smoke.check(ratio <= 1.0 and err_lse <= 1e-3 and equal,
+                        f"K1c {mode} {name}: max_abs_err {err:.3e} (tol "
+                        f"{TOL_TEXT[dt]}; worst |d|/tol {ratio:.3f}), lse "
+                        f"{err_lse:.3e} (tol 1e-3); torch.equal to the dense "
+                        f"K1: {equal}")
+            del got, dense, plain
+        out, lse = bam_flash_attention(*fargs, return_mode="residual", **kw)
+        delta = bwd_delta(out, do)
+        bargs = (q, k, v, do, lse, delta, bits, bits, pos, pos)
+        dq = bam_bwd_dq(*bargs, block_map=bm, **kw)
+        dk, dv = bam_bwd_dkv(*bargs, block_map=bm, **kw)
+        eq_dq = torch.equal(dq, bam_bwd_dq(*bargs, **kw))
+        eq_dkv = all(torch.equal(a, b) for a, b in
+                     zip((dk, dv), bam_bwd_dkv(*bargs, **kw)))
+        torch.cuda.synchronize()
+        e_dq, r_dq = compare(dq, bam_bwd_dq_torch(*bargs, block_map=bm, **kw),
+                             dt)
+        dk_p, dv_p = bam_bwd_dkv_torch(*bargs, block_map=bm, **kw)
+        e_dk, r_dk = compare(dk, dk_p, dt)
+        e_dv, r_dv = compare(dv, dv_p, dt)
+        del dk_p, dv_p
+        smoke.check(r_dq <= 1.0 and eq_dq,
+                    f"K2c {name}: max_abs_err dq {e_dq:.3e} (tol "
+                    f"{TOL_TEXT[dt]}; worst |d|/tol {r_dq:.3f}); torch.equal "
+                    f"to the dense K2: {eq_dq}")
+        smoke.check(r_dk <= 1.0 and r_dv <= 1.0 and eq_dkv,
+                    f"K3c {name}: max_abs_err dk {e_dk:.3e} (worst |d|/tol "
+                    f"{r_dk:.3f}), dv {e_dv:.3e} (worst {r_dv:.3f}), tol "
+                    f"{TOL_TEXT[dt]}; torch.equal to the dense K3: {eq_dkv}")
+        mask = bam.allowed_mask(bits, bits, pos, pos, window)     # [1,T,T]
+        if softcap == 0.0:
+            # the step list is what the kernels walk: drop one tile
+            pm, tile = pruned_map(bm, mask[0].cpu().numpy())
+            pout, plse = bam_flash_attention(*fargs, return_mode="residual",
+                                             block_map=pm, **kw)
+            torch.cuda.synchronize()
+            pout_p, plse_p = bam_flash_attention_torch(
+                *fargs, return_mode="residual", block_map=pm, **kw)
+            e_o, r_o = compare(pout, pout_p, dt)
+            e_l = float((plse - plse_p).abs().max())
+            pdelta = bwd_delta(pout, do)
+            pargs = (q, k, v, do, plse, pdelta, bits, bits, pos, pos)
+            pdq = bam_bwd_dq(*pargs, block_map=pm, **kw)
+            pdk, pdv = bam_bwd_dkv(*pargs, block_map=pm, **kw)
+            ddq = bam_bwd_dq(*pargs, **kw)
+            ddk, ddv = bam_bwd_dkv(*pargs, **kw)
+            torch.cuda.synchronize()
+            r_pq = compare(pdq, bam_bwd_dq_torch(*pargs, block_map=pm, **kw),
+                           dt)[1]
+            pdk_p, pdv_p = bam_bwd_dkv_torch(*pargs, block_map=pm, **kw)
+            r_pk = max(compare(pdk, pdk_p, dt)[1], compare(pdv, pdv_p, dt)[1])
+            differ = (not torch.equal(pout, out), not torch.equal(pdq, ddq),
+                      not (torch.equal(pdk, ddk) and torch.equal(pdv, ddv)))
+            smoke.check(r_o <= 1.0 and e_l <= 1e-3 and r_pq <= 1.0
+                        and r_pk <= 1.0 and all(differ),
+                        f"pruned map (tile {tile} dropped) {dt}: K1c out "
+                        f"max_abs_err {e_o:.3e} (worst |d|/tol {r_o:.3f}), "
+                        f"lse {e_l:.3e}; K2c worst |d|/tol {r_pq:.3f}; K3c "
+                        f"{r_pk:.3f} against their plain versions under the "
+                        f"same map; differ from the dense K1, K2, K3: "
+                        f"{differ}")
+            del pdk_p, pdv_p
+        if (dt, softcap, window) != headline:
+            continue
+        compact_times(smoke, bm, mask, fargs, bargs, errs, (e_dq, r_dq),
+                      (max(e_dk, e_dv), max(r_dk, r_dv)),
+                      f"q[1,{T},{H},{hd}] kv[1,{T},{Hkv},{hd}] {dt} vlm "
+                      f"layout")
+
+
+def compact_times(smoke: Smoke, bm, mask, fargs, bargs, errs, err_dq,
+                  err_dkv, shape: str):
+    """Compacted K1 (residual), K2 and K3 against the dense kernels, their
+    plain versions and SDPA (boolean mask, and its backward) at the
+    headline case; the bound counts the allowed pairs inside the map."""
+    torch = smoke.torch
+    import torch.nn.functional as F
+    from repro_torch.core import bam
+    from repro_torch.kernels.bam_attention import (
+        bam_bwd_dkv, bam_bwd_dkv_torch, bam_bwd_dq, bam_bwd_dq_torch,
+        bam_flash_attention, bam_flash_attention_torch)
+    q, k, v = fargs[:3]
+    H, Hkv = q.shape[2], k.shape[2]
+    hd = q.shape[3]
+    do, lse, delta = bargs[3:6]
+    tiles = bam.tile_mask(bm, q.shape[1], k.shape[1], q.device)
+    mask = mask & tiles
+    pairs = float(mask.sum())
+    csr = bam.block_csr(bm, q.device)
+    map_bytes = {"q": (csr.q_ptr.numel() + csr.q_cols.numel()) * 4,
+                 "k": (csr.k_ptr.numel() + csr.k_rows.numel()) * 4}
+    small = sum(t.numel() * t.element_size() for t in fargs[3:])
+    io = sum(t.numel() * t.element_size() for t in (q, k, v))
+    kw = dict(return_mode="residual")
+    t = {"K1c": cuda_ms(torch, lambda: bam_flash_attention(
+            *fargs, block_map=bm, **kw)),
+         "K1": cuda_ms(torch, lambda: bam_flash_attention(*fargs, **kw)),
+         "K2c": cuda_ms(torch, lambda: bam_bwd_dq(*bargs, block_map=bm)),
+         "K2": cuda_ms(torch, lambda: bam_bwd_dq(*bargs)),
+         "K3c": cuda_ms(torch, lambda: bam_bwd_dkv(*bargs, block_map=bm)),
+         "K3": cuda_ms(torch, lambda: bam_bwd_dkv(*bargs))}
+    plain = {"K1c": cuda_ms(torch, lambda: bam_flash_attention_torch(
+                 *fargs, block_map=bm, **kw), iters=3),
+             "K2c": cuda_ms(torch, lambda: bam_bwd_dq_torch(
+                 *bargs, block_map=bm), iters=3),
+             "K3c": cuda_ms(torch, lambda: bam_bwd_dkv_torch(
+                 *bargs, block_map=bm), iters=3)}
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = {"K1c": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True))}
+    n_rep = H // Hkv
+    qt_l = qt.detach().requires_grad_()
+    kt_l, vt_l = (x.repeat_interleave(n_rep, dim=1).detach()
+                  .requires_grad_() for x in (kt, vt))
+    out_l = F.scaled_dot_product_attention(qt_l, kt_l, vt_l,
+                                           attn_mask=mask[:, None])
+    g_l = do.transpose(1, 2)
+    lib["K2c"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        out_l, (qt_l,), g_l, retain_graph=True))
+    lib["K3c"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        out_l, (kt_l, vt_l), g_l, retain_graph=True))
+    del out_l
+    tile_flops = 2.0 * hd * H * pairs
+    out_bytes = {"K1c": q.numel() * q.element_size() + lse.numel() * 4,
+                 "K2c": q.numel() * q.element_size(),
+                 "K3c": 2 * k.numel() * k.element_size()}
+    in_bytes = {"K1c": io + small + map_bytes["q"],
+                "K2c": io + do.numel() * do.element_size() + small
+                + 2 * lse.numel() * 4 + map_bytes["q"],
+                "K3c": io + do.numel() * do.element_size() + small
+                + 2 * lse.numel() * 4 + map_bytes["k"]}
+    nprod = {"K1c": 2, "K2c": 3, "K3c": 4}
+    err = {"K1c": errs["residual"], "K2c": err_dq, "K3c": err_dkv}
+    meta = {"K1c": ("bam_fwd compacted grid (K1c, BAM flash-attention "
+                    "forward over a block map's active tiles; out, "
+                    "residual and stats)", "bam_fwd.cu", 526),
+            "K2c": ("bam_bwd_dq compacted grid (K2c, BAM backward dQ over "
+                    "the q-major active tiles)", "bam_bwd_dq.cu", 652),
+            "K3c": ("bam_bwd_dkv compacted grid (K3c, BAM backward dK/dV "
+                    "over the k-major active tiles, GQA folded)",
+                    "bam_bwd_dkv.cu", 667)}
+    for key in ("K1c", "K2c", "K3c"):
+        flops = nprod[key] * tile_flops
+        b_ms, b_by = bound(flops, in_bytes[key] + out_bytes[key],
+                           "bfloat16")
+        dense = key[:2]
+        print(f"{key} {shape}: kernel {t[key]:.3f} ms (dense {dense} "
+              f"{t[dense]:.3f} ms), plain {plain[key]:.3f} ms, SDPA "
+              f"{'backward ' if key != 'K1c' else ''}with bool mask "
+              f"{lib[key]:.3f} ms, bound {b_ms:.4f} ms ({b_by}); "
+              f"{pairs:.0f} allowed pairs in {bm.n_steps} of "
+              f"{bm.n_dense_steps} tiles, {flops / t[key] / 1e9:.1f} "
+              f"TFLOP/s", flush=True)
+        label, src, line = meta[key]
+        smoke.kernels[key] = {
+            "name": label, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/bam_attention.py:{line}",
+            "max_abs_err": err[key][0], "tolerance": TOL_TEXT["bfloat16"],
+            "worst_err_over_tol": err[key][1], "ms": t[key],
+            "dense_ms": t[dense], "plain_ms": plain[key], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib[key], "shape": shape}
+
+
+def compact_layouts(smoke: Smoke):
+    """The reference benchmark's layouts, ``random_multimodal_bits(4096,
+    mode, seed=0)`` for ep, ee and mp, at the vlm widths in bf16: active
+    and dense steps, skip fraction, dense against compacted K1 (residual),
+    K2 and K3 times, and torch.equal between the two grids."""
+    torch = smoke.torch
+    from repro_torch.core import bam
+    from repro_torch.data.synthetic import random_multimodal_bits
+    from repro_torch.kernels.bam_attention import (
+        BLOCK_K, BLOCK_Q, bam_bwd_dkv, bam_bwd_dq, bam_flash_attention,
+        bwd_delta)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    H, Hkv, hd, T = 32, 8, 128, COMPACT_T
+    smoke.compact_layouts = {}
+    for mode in COMPACT_LAYOUTS:
+        bits_np, pos_np = random_multimodal_bits(T, mode, seed=SEED)
+        bm = bam.build_block_map(bits_np, bits_np, pos_np, pos_np, BLOCK_Q,
+                                 BLOCK_K)
+        active = sum(s[4] for s in bm.q_steps)
+        bits = torch.from_numpy(bits_np).cuda()[None]
+        pos = torch.from_numpy(pos_np).cuda()[None]
+        q, do = (torch.randn((1, T, H, hd), generator=gen, device="cuda")
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((1, T, Hkv, hd), generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        fargs = (q, k, v, bits, bits, pos, pos)
+        kw = dict(return_mode="residual")
+        out, lse = bam_flash_attention(*fargs, **kw)
+        out_c, lse_c = bam_flash_attention(*fargs, block_map=bm, **kw)
+        bargs = (q, k, v, do, lse, bwd_delta(out, do), bits, bits, pos, pos)
+        equal = {"K1": torch.equal(out, out_c) and torch.equal(lse, lse_c),
+                 "K2": torch.equal(bam_bwd_dq(*bargs),
+                                   bam_bwd_dq(*bargs, block_map=bm)),
+                 "K3": all(torch.equal(a, b) for a, b in zip(
+                     bam_bwd_dkv(*bargs), bam_bwd_dkv(*bargs, block_map=bm)))}
+        t = {}
+        for key, fn, a, kwk in (("K1", bam_flash_attention, fargs, kw),
+                                ("K2", bam_bwd_dq, bargs, {}),
+                                ("K3", bam_bwd_dkv, bargs, {})):
+            t[key] = cuda_ms(torch, lambda: fn(*a, **kwk), iters=5)
+            t[key + "c"] = cuda_ms(torch, lambda: fn(*a, block_map=bm, **kwk),
+                                   iters=5)
+        pairs = float(bam.allowed_mask(bits, bits, pos, pos).sum())
+        row = dict(active_steps=active, dense_steps=bm.n_dense_steps,
+                   skip_fraction=bm.skip_fraction, allowed_pairs=pairs,
+                   equal=equal, ms=t)
+        smoke.compact_layouts[mode] = row
+        print(f"layout {mode} T={T} bf16: {active} of {bm.n_dense_steps} "
+              f"tiles active (skip fraction {bm.skip_fraction:.3f}), mask "
+              f"density {pairs / T / T:.3f}; dense / compacted ms: K1 "
+              f"{t['K1']:.3f} / {t['K1c']:.3f}, K2 {t['K2']:.3f} / "
+              f"{t['K2c']:.3f}, K3 {t['K3']:.3f} / {t['K3c']:.3f}",
+              flush=True)
+        smoke.check(all(equal.values()), f"layout {mode} T={T} bf16: "
+                    f"compacted K1, K2, K3 torch.equal to dense: {equal}")
+
+
+def compact_path(smoke: Smoke):
+    """The path end to end: ``ops.bam_attention(impl="bam_kernel",
+    block_map=bm)`` forward and ``torch.autograd.grad`` for q, k, v at the
+    vlm layout in bf16. Launch counts are zeroed just before and read just
+    after: K1c, K2c and K3c once each, no dense kernel. Output and
+    gradients equal (torch.equal) the same call without a map."""
+    torch = smoke.torch
+    from repro_torch.core import bam
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.bam_attention import BLOCK_K, BLOCK_Q
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    H, Hkv, hd, T = 32, 8, 128, 1600
+    bits_np, pos_np = bam.build_sample_bits(vlm_segments(T), T)
+    bm = bam.build_block_map(bits_np, bits_np, pos_np, pos_np, BLOCK_Q,
+                             BLOCK_K)
+    bits = torch.from_numpy(bits_np).cuda()[None]
+    pos = torch.from_numpy(pos_np).cuda()[None]
+    q, g = (torch.randn((1, T, H, hd), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((1, T, Hkv, hd), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    leaves = [x.requires_grad_() for x in (q, k, v)]
+
+    def run(block_map):
+        out = ops.bam_attention(*leaves, bits, bits, pos, pos,
+                                impl="bam_kernel", block_map=block_map)
+        return (out.detach(), *torch.autograd.grad(out, leaves, g))
+
+    torch.cuda.synchronize()
+    zero_counts()
+    got = run(bm)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(K1c=1, K2c=1, K3c=1)
+    smoke.launches["compact"] = counts
+    print("launches on the compact path (one forward and backward): "
+          + ", ".join(f"{k} {n}" for k, n in counts.items()), flush=True)
+    smoke.check(counts == want, "the block_map= op launched K1c, K2c, K3c "
+                "once each and no dense kernel")
+    dense = run(None)
+    equal = [bool(torch.equal(a, b)) for a, b in zip(got, dense)]
+    smoke.check(all(equal), f"block_map= op vs the same call without a map "
+                f"(out, dq, dk, dv): torch.equal {equal}")
+
+
+# ---------------------------------------------------------------------------
 # Phases 3 and 4: the serving path
 # ---------------------------------------------------------------------------
 
@@ -947,11 +1342,14 @@ def train_phase(smoke: Smoke):
     print(f"launches on the train path (3 steps): K1 {k1}, K2 {k2}, K3 {k3}, "
           f"K4 {k4}", flush=True)
     smoke.launches["train"] = {"K1": k1, "K2": k2, "K3": k3, "K4": k4}
-    want = 3 * mllm.llm_cfg.num_layers
-    smoke.check(k1 == k2 == k3 == want and k4 == 0,
-                f"K1, K2, K3 launched {k1}, {k2}, {k3} times = "
-                f"{mllm.llm_cfg.num_layers} layers x "
-                f"3 steps = {want}; K4 {k4} times")
+    # under remat each LLM block's forward runs again in the backward
+    n_layers, remat = mllm.llm_cfg.num_layers, mllm.llm_cfg.remat
+    want = 3 * n_layers
+    want_k1 = want * (2 if remat else 1)
+    smoke.check(k1 == want_k1 and k2 == k3 == want and k4 == 0,
+                f"K1 launched {k1} times = {n_layers} layers x 3 steps x "
+                f"{2 if remat else 1} (remat={remat}) = {want_k1}; K2, K3 "
+                f"{k2}, {k3} times = {want}; K4 {k4} times")
     smoke.check(all(np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])
                     for s in steps), "every train loss and grad_norm is "
                 "finite")
@@ -981,8 +1379,26 @@ def train_phase(smoke: Smoke):
           f"kernels: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
               f"x{e.count}" for e in top), flush=True)
+    # the same step without remat, for comparison within this run
+    mllm.llm_cfg = mllm.llm_cfg.replace(remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = [fn.launches for fn in kernels]
+    t0 = time.perf_counter()
+    params, state, met = step(params, state, batches[0])
+    float(met["loss"])
+    ms_plain = (time.perf_counter() - t0) * 1e3
+    peak_plain = torch.cuda.max_memory_allocated() / 2 ** 30
+    k1_plain = kernels[0].launches - before[0]
+    mllm.llm_cfg = mllm.llm_cfg.replace(remat=remat)
+    print(f"train step without remat (for comparison): {ms_plain:.1f} ms, "
+          f"peak memory {peak_plain:.2f} GiB, K1 launched {k1_plain} times",
+          flush=True)
+    smoke.check(k1_plain == n_layers, f"without remat K1 launched "
+                f"{k1_plain} times = {n_layers} layers")
     smoke.train = dict(steps=steps, profile_busy_ms=busy_us / 1e3,
-                       profile_wall_ms=wall_us / 1e3)
+                       profile_wall_ms=wall_us / 1e3, remat=remat,
+                       no_remat_step=dict(ms=ms_plain, peak_gib=peak_plain))
 
 
 def train_parity_phase(smoke: Smoke):
@@ -1175,17 +1591,41 @@ def cp_phase(smoke: Smoke, group):
                   f"{gnorm:.6f}, {ms:.1f} ms, peak memory {peak:.2f} GiB; "
                   f"launches " + ", ".join(f"{k} {v}" for k, v in
                                            per.items()), flush=True)
-            L = cfg.num_layers
-            smoke.check(per["K1 stats"] == per["K2"] == per["K3"] == L
+            # under remat each block's forward runs again in the backward
+            L, fwd = cfg.num_layers, 2 if cfg.remat else 1
+            smoke.check(per["K1 stats"] == L * fwd
+                        and per["K2"] == per["K3"] == L
                         and per["K1"] == 0 and per["K4"] == 0
                         and np.isfinite(loss) and np.isfinite(gnorm),
-                        f"CP {method} step {i}: K1 stats, K2, K3 launched "
-                        f"{per['K1 stats']}, {per['K2']}, {per['K3']} times "
-                        f"(one per layer = {L}), K1 residual {per['K1']}, "
-                        f"K4 {per['K4']}; loss and grad_norm finite")
+                        f"CP {method} step {i}: K1 stats launched "
+                        f"{per['K1 stats']} times ({L} layers x {fwd}, "
+                        f"remat={cfg.remat}), K2, K3 {per['K2']}, "
+                        f"{per['K3']} (one per layer = {L}), K1 residual "
+                        f"{per['K1']}, K4 {per['K4']}; loss and grad_norm "
+                        f"finite")
         if method == "allgather":
             busy_ms, wall_ms = profile_step(torch, step, model, state,
                                             batches[0], "CP allgather")
+            # the same step without remat, for comparison within this run
+            step_nr = cp_step(cfg.replace(remat=False), lay, group, ocfg,
+                              method)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = counts()
+            t0 = time.perf_counter()
+            model, state, met = step_nr(model, state, batches[1])
+            float(met["loss"])
+            ms_nr = (time.perf_counter() - t0) * 1e3
+            peak_nr = torch.cuda.max_memory_allocated() / 2 ** 30
+            k1s_nr = counts()["K1 stats"] - before["K1 stats"]
+            print(f"CP allgather step without remat (for comparison): "
+                  f"{ms_nr:.1f} ms, peak memory {peak_nr:.2f} GiB, K1 "
+                  f"stats launched {k1s_nr} times", flush=True)
+            smoke.check(k1s_nr == cfg.num_layers, f"CP without remat: K1 "
+                        f"stats launched {k1s_nr} times = "
+                        f"{cfg.num_layers} layers")
+            no_remat = dict(ms=ms_nr, peak_gib=peak_nr)
+            del step_nr
         del model, state, named, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -1213,7 +1653,8 @@ def cp_phase(smoke: Smoke, group):
                     f"non-CP {ref[0]:.6f} (rel {rl:.2e}), grad_norm "
                     f"{gc_:.6f} vs {ref[1]:.6f} (rel {rg:.2e}); tol 2e-2")
     smoke.cp = dict(runs=runs, profile_busy_ms=busy_ms,
-                    profile_wall_ms=wall_ms, non_cp_step0=ref)
+                    profile_wall_ms=wall_ms, non_cp_step0=ref,
+                    remat=cfg.remat, no_remat_step=no_remat)
 
 
 def cp_parity_phase(smoke: Smoke, group):
@@ -1305,6 +1746,12 @@ def main() -> int:
         bwd_cases(smoke)
         k4_cases(smoke)
         cp_kernel_cases(smoke)
+    if "compact" in phases:
+        compact_kernel_cases(smoke)
+        compact_layouts(smoke)
+        compact_path(smoke)
+        gc.collect()
+        torch.cuda.empty_cache()
     if "serving" in phases:
         model, cfg, reqs = serving_phase(smoke)
         decode_profile(smoke, model, cfg, reqs)
@@ -1333,17 +1780,27 @@ def main() -> int:
               f"for a partial run")
         return 0
     # launches: each kernel's count on each path it is on (serving: K1,
-    # K4; train: K1, K2, K3; cp: K1 stats, K2, K3); "launches" is the
-    # train path's for K1-K3, the CP path's for K1 stats
+    # K4; train: K1, K2, K3; cp: K1 stats, K2, K3; compact: K1c, K2c,
+    # K3c); "launches" is the train path's for K1-K3, the CP path's for
+    # K1 stats, the compact path's for K1c-K3c
     paths = smoke.launches
     for key in KERNEL_KEYS:
         by_path = {path: counts[key] for path, counts in paths.items()
                    if counts.get(key)}
         smoke.kernels[key]["launches_by_path"] = by_path
-        smoke.kernels[key]["launches"] = by_path.get(
-            "train", by_path.get("cp", by_path.get("serving", 0)))
+        smoke.kernels[key]["launches"] = next(
+            (by_path[p] for p in ("train", "cp", "serving", "compact")
+             if p in by_path), 0)
     for key, share in smoke.cp_share.items():
         smoke.kernels[key]["cp_share"] = share
+    for key in ("K1c", "K2c", "K3c"):
+        smoke.kernels[key]["layouts"] = {
+            mode: {"active_steps": row["active_steps"],
+                   "dense_steps": row["dense_steps"],
+                   "skip_fraction": row["skip_fraction"],
+                   "ms": row["ms"][key], "dense_ms": row["ms"][key[:2]],
+                   "equal_to_dense": row["equal"][key[:2]]}
+            for mode, row in smoke.compact_layouts.items()}
     print(json.dumps({"kernels": [smoke.kernels[k] for k in KERNEL_KEYS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

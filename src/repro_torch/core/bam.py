@@ -29,7 +29,8 @@ never calls torch for it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence, Tuple
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -227,6 +228,18 @@ class BlockMask:
         cols = np.asarray(steps, np.int32).reshape(len(steps), 5)
         return tuple(np.ascontiguousarray(cols[:, j]) for j in range(5))
 
+    def active_tiles(self, major: str = "q") -> np.ndarray:
+        """[nq, nk] bool: the tiles that one step list (q-major for the
+        forward and dQ, k-major for dK/dV) marks active."""
+        steps = self.q_steps if major == "q" else self.k_steps
+        active = np.zeros((self.nq, self.nk), bool)
+        for iq, ik, _, _, on in steps:
+            if not (0 <= iq < self.nq and 0 <= ik < self.nk):
+                raise ValueError(f"block map step ({iq}, {ik}) lies outside "
+                                 f"its {self.nq} x {self.nk} grid")
+            active[iq, ik] |= bool(on)
+        return active
+
 
 def _flatten_active(active: np.ndarray) -> Tuple[Tuple[int, ...], ...]:
     steps = []
@@ -270,11 +283,66 @@ def build_block_map(q_bits, kv_bits, q_pos, kv_pos, block_q: int,
         strip = allowed_mask_np(qb[:, s], kb, qp[:, s], kp, window)
         active[iq] = strip.reshape(-1, block_q, nk, block_k).any(
             axis=(0, 1, 3))
+    return block_map_from_tiles(active, block_q, block_k, window)
+
+
+def block_map_from_tiles(active: np.ndarray, block_q: int, block_k: int,
+                         window: int = 0) -> BlockMask:
+    """The BlockMask whose q-major and k-major step lists hold exactly the
+    tiles of ``active`` [nq, nk] bool (what ``build_block_map`` derives
+    from a mask; a pruned copy of ``BlockMask.active_tiles()`` makes a
+    map that leaves tiles out)."""
+    active = np.asarray(active, bool)
+    nq, nk = active.shape
     return BlockMask(block_q=block_q, block_k=block_k, nq=nq, nk=nk,
                      window=window,
                      q_steps=_flatten_active(active),
                      k_steps=tuple((i, j, f, l, a) for (j, i, f, l, a)
                                    in _flatten_active(active.T)))
+
+
+class BlockCSR(NamedTuple):
+    """A block map's active tiles as int32 CSR on one device: row iq of
+    ``q_ptr``/``q_cols`` lists q-block iq's active k-blocks, row ik of
+    ``k_ptr``/``k_rows`` k-block ik's active q-blocks, both ascending.
+    The compacted kernels walk these rows (the Pallas kernels' first /
+    last / active flags become the row bounds)."""
+    q_ptr: torch.Tensor     # [nq + 1]
+    q_cols: torch.Tensor    # [active tiles of the q-major list]
+    k_ptr: torch.Tensor     # [nk + 1]
+    k_rows: torch.Tensor    # [active tiles of the k-major list]
+
+
+def _csr(active: np.ndarray, device):
+    ptr = np.zeros(active.shape[0] + 1, np.int32)
+    np.cumsum(active.sum(axis=1), out=ptr[1:])
+    idx = np.nonzero(active)[1].astype(np.int32)    # row-major: ascending
+    return (torch.from_numpy(ptr).to(device),
+            torch.from_numpy(np.ascontiguousarray(idx)).to(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _block_csr(block_map: BlockMask, device: torch.device) -> BlockCSR:
+    q_ptr, q_cols = _csr(block_map.active_tiles("q"), device)
+    k_ptr, k_rows = _csr(block_map.active_tiles("k").T, device)
+    return BlockCSR(q_ptr, q_cols, k_ptr, k_rows)
+
+
+def block_csr(block_map: BlockMask, device) -> BlockCSR:
+    """``block_map``'s CSR arrays on ``device``, uploaded once per (map,
+    device): a BlockMask is frozen and hashable."""
+    return _block_csr(block_map, torch.device(device))
+
+
+def tile_mask(block_map: BlockMask, Tq: int, Tk: int, device,
+              major: str = "q"):
+    """[Tq, Tk] bool: True on the pairs inside the active tiles of one
+    step list, cropped to the unpadded lengths. The plain versions of the
+    compacted kernels AND it with the BAM mask."""
+    active = torch.from_numpy(block_map.active_tiles(major))
+    return (active.repeat_interleave(block_map.block_q, 0)
+            .repeat_interleave(block_map.block_k, 1)[:Tq, :Tk]
+            .to(resolve_device(device)))
 
 
 def build_sample_bits(segments: Sequence[Tuple[str, int, int]],

@@ -12,11 +12,22 @@ PyTorch versions.
   recompute P from the forward's lse and take delta = rowsum(dO·O)
   (``bwd_delta``, plain PyTorch) as an input.
 
+Each takes ``block_map=`` (a ``core.bam.BlockMask`` built at the
+kernels' own tile, ``BLOCK_Q`` x ``BLOCK_K`` = 64 x 32): the compacted
+grid, the counterpart of the Pallas kernels' ``block_map`` path
+(``_bam_fwd_kernel_sparse``, ``_bam_bwd_dq_kernel_sparse``,
+``_bam_bwd_dkv_kernel_sparse``). The kernels then walk only the active
+tiles of the map's CSR rows (``core.bam.block_csr``): q-major for K1 and
+K2, k-major for K3. Pairs outside the map's tiles count as masked, so the
+plain versions AND the mask with ``core.bam.tile_mask``.
+
 The [T, T] mask is never materialised by a kernel: each tile of it is
 evaluated from the int32 bitfield and position vectors. A CPU tensor
 runs the plain version (``*_torch``); a CUDA tensor launches the kernel
 or raises. Each kernel wrapper counts its launches in ``.launches``;
-K1 counts its stats-mode launches apart, in ``.stats_launches``.
+K1 counts its stats-mode launches apart, in ``.stats_launches``, and
+every wrapper counts its compacted launches (any mode) apart, in
+``.compact_launches``.
 """
 from __future__ import annotations
 
@@ -33,20 +44,64 @@ from repro_torch.kernels.ref import (NEG_INF, masked_attention,  # noqa: F401
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 RETURN_MODES = ("out", "residual", "stats")
+# the kernels' tile (csrc/*.cu: BQ x BK), which a block map must share
+BLOCK_Q, BLOCK_K = 64, 32
+
+
+def check_block_map(block_map, Tq: int, Tk: int, window: int) -> None:
+    """Refuse a map the kernels cannot walk: another tile, a grid that is
+    not ceil(T / tile), or another window (tiles valid under this window
+    may have been pruned). The counterpart of the Pallas wrapper's
+    ``_check_block_map``."""
+    if (block_map.block_q, block_map.block_k) != (BLOCK_Q, BLOCK_K):
+        raise ValueError(
+            f"block_map was built for tile {block_map.block_q} x "
+            f"{block_map.block_k}; the kernels' tile is {BLOCK_Q} x "
+            f"{BLOCK_K}")
+    grid = (-(-Tq // BLOCK_Q), -(-Tk // BLOCK_K))
+    if (block_map.nq, block_map.nk) != grid:
+        raise ValueError(f"block_map grid {(block_map.nq, block_map.nk)} "
+                         f"does not match Tq={Tq}, Tk={Tk}: want {grid}")
+    if block_map.window != window:
+        raise ValueError(f"block_map was built for window "
+                         f"{block_map.window}, the call has {window}")
+
+
+def _tiles(block_map, q, k, major: str):
+    """The plain versions' restriction to the map's tiles (None without
+    a map)."""
+    if block_map is None:
+        return None
+    return bam.tile_mask(block_map, q.shape[1], k.shape[1], q.device, major)
+
+
+def _csr_args(block_map, device, major: str):
+    """(row pointers, column indices) for a launch; (None, None) on the
+    dense grid."""
+    if block_map is None:
+        return None, None
+    csr = bam.block_csr(block_map, device)
+    ptr, idx = (csr.q_ptr, csr.q_cols) if major == "q" else (csr.k_ptr,
+                                                             csr.k_rows)
+    return ptr.data_ptr(), idx.data_ptr()
 
 
 def bam_flash_attention_torch(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
                               softcap: float = 0.0, window: int = 0,
-                              return_mode: str = "out"):
+                              return_mode: str = "out", block_map=None):
     """Plain version of K1: dense masked softmax in f32 with the kernel's
-    conventions (rows with no allowed key give out = 0, lse = -1e30)."""
+    conventions (rows with no allowed key give out = 0, lse = -1e30; in
+    stats mode m = -1e30, l = 0, acc = 0). With ``block_map``, only the
+    pairs inside its active tiles are allowed."""
+    tiles = _tiles(block_map, q, k, "q")
     if return_mode == "stats":
         # (acc [B,H,Tq,hd], m, l) in f32, p multiplying V in f32
-        mask = bam.allowed_mask(q_bits, kv_bits, q_pos, kv_pos,
-                                window)[:, None]
-        return masked_stats(q, k, v, mask, softcap=softcap)
+        mask = bam.allowed_mask(q_bits, kv_bits, q_pos, kv_pos, window)
+        if tiles is not None:
+            mask = mask & tiles
+        return masked_stats(q, k, v, mask[:, None], softcap=softcap)
     out, lse = masked_attention(q, k, v, q_bits, kv_bits, q_pos, kv_pos,
-                                softcap=softcap, window=window)
+                                softcap=softcap, window=window, tiles=tiles)
     return out if return_mode == "out" else (out, lse)
 
 
@@ -55,7 +110,7 @@ def _entry():
     fn = _build.library("bam_fwd").bam_fwd
     p, i = ctypes.c_void_p, ctypes.c_int
     f = ctypes.c_float
-    fn.argtypes = [p] * 10 + [i] * 7 + [f, f, i, p]
+    fn.argtypes = [p] * 12 + [i] * 7 + [f, f, i, p]
     fn.restype = i
     return fn
 
@@ -76,22 +131,25 @@ def _check_inputs(q, k, v, q_bits, kv_bits, q_pos, kv_pos):
 
 def bam_flash_attention(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
                         softcap: float = 0.0, window: int = 0,
-                        return_mode: str = "out"):
+                        return_mode: str = "out", block_map=None):
     """BAM attention forward. q: [B,Tq,H,hd]; k/v: [B,Tk,Hkv,hd]; bits
     and positions int32 [B,T*]. Any Tq, Tk (the kernel masks its own
     ragged edge). Returns out [B,Tq,H,hd], or (out, lse [B,H,Tq] f32)
     for ``return_mode="residual"``, or for ``return_mode="stats"`` the
     f32 (acc [B,H,Tq,hd], m [B,H,Tq], l [B,H,Tq]) with acc = Σ exp(s -
     m)·V over allowed keys (the kernel writes acc in that layout
-    itself)."""
+    itself). With ``block_map`` the compacted grid: each q block walks
+    only its active k tiles, ascending."""
     if return_mode not in RETURN_MODES:
         raise ValueError(f"return_mode={return_mode!r}; pick from "
                          f"{RETURN_MODES}")
     _check_inputs(q, k, v, q_bits, kv_bits, q_pos, kv_pos)
+    if block_map is not None:
+        check_block_map(block_map, q.shape[1], k.shape[1], window)
     if q.device.type == "cpu":
         return bam_flash_attention_torch(
             q, k, v, q_bits, kv_bits, q_pos, kv_pos, softcap=softcap,
-            window=window, return_mode=return_mode)
+            window=window, return_mode=return_mode, block_map=block_map)
     tensors = (q, k, v, q_bits, kv_bits, q_pos, kv_pos)
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError("bam_flash_attention: all inputs must be on one "
@@ -119,18 +177,24 @@ def bam_flash_attention(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
         kv_bits.data_ptr(), q_pos.data_ptr(), kv_pos.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(),
         None if lsum is None else lsum.data_ptr(),
+        *_csr_args(block_map, q.device, "q"),
         B, Tq, Tk, H, Hkv, hd, DTYPE_CODES[q.dtype], hd ** -0.5,
         float(softcap), int(window), stream)
     _build.check("bam_fwd", rc)
-    if stats:
+    if block_map is not None:
+        bam_flash_attention.compact_launches += 1
+    elif stats:
         bam_flash_attention.stats_launches += 1
+    else:
+        bam_flash_attention.launches += 1
+    if stats:
         return out, lse, lsum
-    bam_flash_attention.launches += 1
     return out if return_mode == "out" else (out, lse)
 
 
 bam_flash_attention.launches = 0
 bam_flash_attention.stats_launches = 0
+bam_flash_attention.compact_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -144,18 +208,22 @@ def bwd_delta(out, do):
 
 
 def _p_ds(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos,
-          softcap, window):
+          softcap, window, tiles=None):
     """Dense f32 recompute of P = exp(s - lse) on allowed pairs (0
     elsewhere, by select: an empty row's lse is -1e30) and dS = P (dP -
-    delta), times 1 - (s/cap)^2 under a softcap. Returns (p, ds) [B,H,Tq,Tk]
-    and the GQA-expanded f32 k."""
+    delta), times 1 - (s/cap)^2 under a softcap; ``tiles`` [Tq, Tk]
+    restricts the allowed pairs to a block map's. Returns (p, ds)
+    [B,H,Tq,Tk] and the GQA-expanded f32 k."""
     n_rep = q.shape[2] // k.shape[2]
     kf = bam.repeat_kv(k, n_rep).float()
     vf = bam.repeat_kv(v, n_rep).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * q.shape[-1] ** -0.5
     if softcap:
         s = torch.tanh(s / softcap) * softcap
-    mask = bam.allowed_mask(q_bits, kv_bits, q_pos, kv_pos, window)[:, None]
+    mask = bam.allowed_mask(q_bits, kv_bits, q_pos, kv_pos, window)
+    if tiles is not None:
+        mask = mask & tiles
+    mask = mask[:, None]
     p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
     ds = p * (dp - delta[..., None])
@@ -180,19 +248,24 @@ def _dkv_from(p, ds, q, do, k):
 
 
 def bam_bwd_dq_torch(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos,
-                     kv_pos, *, softcap: float = 0.0, window: int = 0):
-    """Plain version of K2: dQ [B,Tq,H,hd] in q's dtype, f32 inside."""
+                     kv_pos, *, softcap: float = 0.0, window: int = 0,
+                     block_map=None):
+    """Plain version of K2: dQ [B,Tq,H,hd] in q's dtype, f32 inside; with
+    ``block_map`` over the pairs of its q-major tiles only."""
     _, ds, kf = _p_ds(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos,
-                      kv_pos, softcap, window)
+                      kv_pos, softcap, window, _tiles(block_map, q, k, "q"))
     return _dq_from(ds, kf, q)
 
 
 def bam_bwd_dkv_torch(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos,
-                      kv_pos, *, softcap: float = 0.0, window: int = 0):
+                      kv_pos, *, softcap: float = 0.0, window: int = 0,
+                      block_map=None):
     """Plain version of K3: (dK, dV) [B,Tk,Hkv,hd] in k's dtype, summed
-    over the query heads of each KV head in f32."""
+    over the query heads of each KV head in f32; with ``block_map`` over
+    the pairs of its k-major tiles only (a k block with none gives
+    zeros)."""
     p, ds, _ = _p_ds(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos,
-                     kv_pos, softcap, window)
+                     kv_pos, softcap, window, _tiles(block_map, q, k, "k"))
     return _dkv_from(p, ds, q, do, k)
 
 
@@ -211,20 +284,24 @@ def bam_flash_attention_bwd_torch(q, k, v, out, do, lse, q_bits, kv_bits,
 def _bwd_entry(name: str, n_out: int):
     fn = getattr(_build.library(name), name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p] * (10 + n_out) + [i] * 7 + [f, f, i, p]
+    fn.argtypes = [p] * (12 + n_out) + [i] * 7 + [f, f, i, p]
     fn.restype = i
     return fn
 
 
-def _check_bwd(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos):
-    """Shapes always; device, dtype and layout for a launch (returns
-    True when the inputs are on the CPU and the plain version runs)."""
+def _check_bwd(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos,
+               block_map, window):
+    """Shapes and the block map always; device, dtype and layout for a
+    launch (returns True when the inputs are on the CPU and the plain
+    version runs)."""
     _check_inputs(q, k, v, q_bits, kv_bits, q_pos, kv_pos)
     B, Tq, H, hd = q.shape
     if do.shape != q.shape:
         raise ValueError(f"do {tuple(do.shape)} != q {tuple(q.shape)}")
     if lse.shape != (B, H, Tq) or delta.shape != (B, H, Tq):
         raise ValueError(f"lse/delta must be [B, H, Tq]=({B}, {H}, {Tq})")
+    if block_map is not None:
+        check_block_map(block_map, Tq, k.shape[1], window)
     if q.device.type == "cpu":
         return True
     tensors = (q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos)
@@ -257,53 +334,69 @@ def _bwd_scalars(q, k, softcap, window):
             torch.cuda.current_stream(q.device).cuda_stream)
 
 
+def _count(fn, block_map) -> None:
+    if block_map is None:
+        fn.launches += 1
+    else:
+        fn.compact_launches += 1
+
+
 def bam_bwd_dq(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos, *,
-               softcap: float = 0.0, window: int = 0):
+               softcap: float = 0.0, window: int = 0, block_map=None):
     """K2: dQ [B,Tq,H,hd] in q's dtype from q, k/v [B,Tk,Hkv,hd], dO, the
-    forward's lse and delta (f32 [B,H,Tq]). Any Tq, Tk."""
+    forward's lse and delta (f32 [B,H,Tq]). Any Tq, Tk. With
+    ``block_map`` each q block walks only its active k tiles."""
     args = (q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos)
-    if _check_bwd(*args):
-        return bam_bwd_dq_torch(*args, softcap=softcap, window=window)
+    kw = dict(softcap=softcap, window=window, block_map=block_map)
+    if _check_bwd(*args, block_map, window):
+        return bam_bwd_dq_torch(*args, **kw)
     dq = torch.empty_like(q)
-    rc = _bwd_entry("bam_bwd_dq", 1)(*_bwd_args(*args), dq.data_ptr(),
-                                     *_bwd_scalars(q, k, softcap, window))
+    rc = _bwd_entry("bam_bwd_dq", 1)(
+        *_bwd_args(*args), dq.data_ptr(),
+        *_csr_args(block_map, q.device, "q"),
+        *_bwd_scalars(q, k, softcap, window))
     _build.check("bam_bwd_dq", rc)
-    bam_bwd_dq.launches += 1
+    _count(bam_bwd_dq, block_map)
     return dq
 
 
 bam_bwd_dq.launches = 0
+bam_bwd_dq.compact_launches = 0
 
 
 def bam_bwd_dkv(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos, *,
-                softcap: float = 0.0, window: int = 0):
+                softcap: float = 0.0, window: int = 0, block_map=None):
     """K3: (dK, dV) [B,Tk,Hkv,hd] in k's dtype, folded over the query
     heads of each KV head inside the kernel (no atomics: the same bits
-    every run). Any Tq, Tk."""
+    every run). Any Tq, Tk. With ``block_map`` each k block walks only
+    its active q blocks (k-major list), each as two 32-row tiles."""
     args = (q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos)
-    if _check_bwd(*args):
-        return bam_bwd_dkv_torch(*args, softcap=softcap, window=window)
+    kw = dict(softcap=softcap, window=window, block_map=block_map)
+    if _check_bwd(*args, block_map, window):
+        return bam_bwd_dkv_torch(*args, **kw)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = _bwd_entry("bam_bwd_dkv", 2)(
         *_bwd_args(*args), dk.data_ptr(), dv.data_ptr(),
+        *_csr_args(block_map, q.device, "k"),
         *_bwd_scalars(q, k, softcap, window))
     _build.check("bam_bwd_dkv", rc)
-    bam_bwd_dkv.launches += 1
+    _count(bam_bwd_dkv, block_map)
     return dk, dv
 
 
 bam_bwd_dkv.launches = 0
+bam_bwd_dkv.compact_launches = 0
 
 
 def bam_flash_attention_bwd(q, k, v, out, do, lse, q_bits, kv_bits, q_pos,
                             kv_pos, *, softcap: float = 0.0,
-                            window: int = 0):
+                            window: int = 0, block_map=None):
     """BAM flash-attention backward from the forward's (out, lse): dq
     [B,Tq,H,hd] in q's dtype, dk/dv [B,Tk,Hkv,hd] in k's dtype. K2 and
-    K3 on a CUDA tensor, their plain versions on a CPU tensor; no
-    O(Tq·Tk) tensor outside the plain versions."""
+    K3 on a CUDA tensor (compacted with ``block_map``), their plain
+    versions on a CPU tensor; no O(Tq·Tk) tensor outside the plain
+    versions."""
     delta = bwd_delta(out, do)
     args = (q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos)
-    dq = bam_bwd_dq(*args, softcap=softcap, window=window)
-    dk, dv = bam_bwd_dkv(*args, softcap=softcap, window=window)
-    return dq, dk, dv
+    kw = dict(softcap=softcap, window=window, block_map=block_map)
+    return (bam_bwd_dq(*args, **kw), *bam_bwd_dkv(*args, **kw))

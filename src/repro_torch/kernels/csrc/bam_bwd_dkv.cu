@@ -26,6 +26,15 @@
 // share a key: in the score phase each computes the (S, dP) pairs of 8
 // of the tile's 32 q rows; in the product phase each owns every fourth
 // dK and dV column. Ragged Tq and Tk load as zeros with bits 0.
+//
+// The compacted grid (COMPACT = true) replaces the dK/dV pallas_call of
+// the Pallas kernel's block_map path (_bam_bwd_dkv_kernel_sparse): the
+// block of k tile j walks only the 64-row q blocks of CSR row j of the
+// map's k-major list (core/bam.py::block_csr), ascending, each as two of
+// its own 32-row q tiles (a second tile past Tq has bits 0 and is
+// skipped), for every query head of its KV head. The same loop body and
+// in-tile skip run, so for a map that covers the mask dK/dV are the dense
+// kernel's to the bit, and a k tile with no active q block writes 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,8 +47,12 @@ constexpr int BK = 32;      // keys per block
 constexpr int BQ = 32;      // q rows per inner tile
 constexpr int NT = 128;     // threads per block: four per key
 constexpr int IR = BQ / 4;  // q rows per thread in the score phase
+constexpr int MAP_BQ = 64;  // q rows per block of the block map
 
-template <typename T, int HD>
+// COMPACT = true: walk the q blocks of CSR row blockIdx.x of (tile_ptr
+// [nk+1], tile_idx) only, MAP_BQ / BQ tiles each; COMPACT = false: every
+// q tile (both null).
+template <typename T, int HD, bool COMPACT>
 __global__ void __launch_bounds__(NT)
 bam_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
@@ -48,8 +61,12 @@ bam_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const int* __restrict__ qbits,
                    const int* __restrict__ kbits,
                    const int* __restrict__ qpos, const int* __restrict__ kpos,
-                   T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk,
-                   int H, int Hkv, float scale, float softcap, int window) {
+                   T* __restrict__ dk, T* __restrict__ dv,
+                   const int* __restrict__ tile_ptr,
+                   const int* __restrict__ tile_idx, int Tq, int Tk, int H,
+                   int Hkv, float scale, float softcap, int window) {
+  static_assert(MAP_BQ % BQ == 0, "a map q block is whole q tiles");
+  constexpr int SUB = MAP_BQ / BQ;
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 4;  // dK and dV columns per thread
   extern __shared__ float smem[];
@@ -85,9 +102,18 @@ bam_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < NC; ++c) adk[c] = adv[c] = 0.f;
 
+  // the q tiles this block visits, ascending: all of them, or SUB per q
+  // block of its CSR row of the block map
+  int it_beg = 0, it_end = (Tq + BQ - 1) / BQ;
+  if constexpr (COMPACT) {
+    it_beg = SUB * tile_ptr[blockIdx.x];
+    it_end = SUB * tile_ptr[blockIdx.x + 1];
+  }
   for (int rep = 0; rep < n_rep; ++rep) {
     const int h = hk * n_rep + rep;
-    for (int q0 = 0; q0 < Tq; q0 += BQ) {
+    for (int it = it_beg; it < it_end; ++it) {
+      const int q0 = COMPACT ? tile_idx[it / SUB] * MAP_BQ + (it % SUB) * BQ
+                             : it * BQ;
       if (tid < BQ) {
         const int t = q0 + tid;
         const size_t row_off = ((size_t)b * H + h) * Tq + t;
@@ -173,18 +199,19 @@ bam_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool COMPACT>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, const int* qb,
            const int* kb, const int* qp, const int* kp, void* dk, void* dv,
-           int B, int Tq, int Tk, int H, int Hkv, float scale,
-           float softcap, int window, cudaStream_t stream) {
+           const int* tile_ptr, const int* tile_idx, int B, int Tq, int Tk,
+           int H, int Hkv, float scale, float softcap, int window,
+           cudaStream_t stream) {
   constexpr int LD = HD + 1;
   const size_t smem =
       sizeof(float) * (2 * BK * LD + 2 * BQ * LD + 2 * BQ * (BK + 1) +
                        2 * BQ) +
       sizeof(int) * 2 * BQ;
-  auto kern = bam_bwd_dkv_kernel<T, HD>;
+  auto kern = bam_bwd_dkv_kernel<T, HD, COMPACT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -192,8 +219,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, qb,
-      kb, qp, kp, static_cast<T*>(dk), static_cast<T*>(dv), Tq, Tk, H, Hkv,
-      scale, softcap, window);
+      kb, qp, kp, static_cast<T*>(dk), static_cast<T*>(dv), tile_ptr,
+      tile_idx, Tq, Tk, H, Hkv, scale, softcap, window);
   return (int)cudaGetLastError();
 }
 
@@ -202,12 +229,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // dtype: 0 = float32, 1 = bfloat16. q/dout [B,Tq,H,hd], k/v/dk/dv
 // [B,Tk,Hkv,hd], all contiguous; lse/delta f32 [B,H,Tq]; bits/pos int32
 // [B,T]. dK/dV come out folded over the H / Hkv query heads of each KV
-// head. Returns cudaGetLastError() after the launch.
+// head. With tile_ptr set, the compacted grid: int32 CSR rows tile_ptr
+// [ceil(Tk/32)+1] and tile_idx (q blocks of 64 rows, ascending per row);
+// both null for the dense grid. Returns cudaGetLastError() after the
+// launch.
 extern "C" int bam_bwd_dkv(const void* q, const void* k, const void* v,
                            const void* dout, const void* lse,
                            const void* delta, const void* q_bits,
                            const void* kv_bits, const void* q_pos,
-                           const void* kv_pos, void* dk, void* dv, int B,
+                           const void* kv_pos, void* dk, void* dv,
+                           const void* tile_ptr, const void* tile_idx, int B,
                            int Tq, int Tk, int H, int Hkv, int hd, int dtype,
                            float scale, float softcap, int window,
                            void* stream) {
@@ -217,10 +248,17 @@ extern "C" int bam_bwd_dkv(const void* q, const void* k, const void* v,
   const int* kb = static_cast<const int*>(kv_bits);
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(kv_pos);
+  const int* tp = static_cast<const int*>(tile_ptr);
+  const int* ti = static_cast<const int*>(tile_idx);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BAM_DKV_CASE(TYPE, HD)                                                \
-  return launch<TYPE, HD>(q, k, v, dout, ls, dl, qb, kb, qp, kp, dk, dv, B,   \
-                          Tq, Tk, H, Hkv, scale, softcap, window, st)
+  return tp != nullptr                                                        \
+             ? launch<TYPE, HD, true>(q, k, v, dout, ls, dl, qb, kb, qp, kp,  \
+                                      dk, dv, tp, ti, B, Tq, Tk, H, Hkv,      \
+                                      scale, softcap, window, st)             \
+             : launch<TYPE, HD, false>(q, k, v, dout, ls, dl, qb, kb, qp, kp, \
+                                       dk, dv, nullptr, nullptr, B, Tq, Tk,   \
+                                       H, Hkv, scale, softcap, window, st)
   if (dtype == 0 && hd == 64) BAM_DKV_CASE(float, 64);
   if (dtype == 0 && hd == 128) BAM_DKV_CASE(float, 128);
   if (dtype == 1 && hd == 64) BAM_DKV_CASE(__nv_bfloat16, 64);

@@ -26,6 +26,13 @@
 // 16 of the tile's 32 (S, dP) pairs and owns every second dQ column.
 // Ragged Tq and Tk are masked here: rows and keys past the end load as
 // zeros with bits 0. GQA reads K/V head h / (H / Hkv).
+//
+// The compacted grid (COMPACT = true) replaces the dQ pallas_call of the
+// Pallas kernel's block_map path (_bam_bwd_dq_kernel_sparse): the block
+// of q tile i walks only the k tiles of CSR row i of the map's q-major
+// list (core/bam.py::block_csr), ascending, through the same loop body
+// and in-tile skip, so for a map that covers the mask dQ is the dense
+// kernel's to the bit, and a row with no active tile writes dQ = 0.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,7 +46,9 @@ constexpr int BK = 32;     // keys per tile
 constexpr int NT = 128;    // threads per block: two per q row
 constexpr int JN = BK / 2; // pairs per thread per tile
 
-template <typename T, int HD>
+// COMPACT = true: walk the k tiles of CSR row blockIdx.x of (tile_ptr
+// [nq+1], tile_idx) only; COMPACT = false: every k tile (both null).
+template <typename T, int HD, bool COMPACT>
 __global__ void __launch_bounds__(NT)
 bam_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const T* __restrict__ dout,
@@ -47,8 +56,9 @@ bam_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const float* __restrict__ delta,
                   const int* __restrict__ qbits, const int* __restrict__ kbits,
                   const int* __restrict__ qpos, const int* __restrict__ kpos,
-                  T* __restrict__ dq, int Tq, int Tk, int H, int Hkv,
-                  float scale, float softcap, int window) {
+                  T* __restrict__ dq, const int* __restrict__ tile_ptr,
+                  const int* __restrict__ tile_idx, int Tq, int Tk, int H,
+                  int Hkv, float scale, float softcap, int window) {
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 2;  // dQ columns per thread
   extern __shared__ float smem[];
@@ -84,7 +94,15 @@ bam_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int c = 0; c < NC; ++c) acc[c] = 0.f;
 
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
+  // the k tiles this block visits, ascending: all of them, or its CSR
+  // row of the block map
+  int it_beg = 0, it_end = (Tk + BK - 1) / BK;
+  if constexpr (COMPACT) {
+    it_beg = tile_ptr[blockIdx.x];
+    it_end = tile_ptr[blockIdx.x + 1];
+  }
+  for (int it = it_beg; it < it_end; ++it) {
+    const int k0 = (COMPACT ? tile_idx[it] : it) * BK;
     for (int i = tid; i < BK * HD; i += NT) {
       const int row = i / HD, d = i % HD, t = k0 + row;
       const size_t off = ((size_t)(b * Tk + t) * Hkv + hk) * HD + d;
@@ -151,17 +169,18 @@ bam_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < NC; ++c) store(out + 2 * c, acc[c] * scale);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool COMPACT>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, const int* qb,
-           const int* kb, const int* qp, const int* kp, void* dq, int B,
-           int Tq, int Tk, int H, int Hkv, float scale, float softcap,
-           int window, cudaStream_t stream) {
+           const int* kb, const int* qp, const int* kp, void* dq,
+           const int* tile_ptr, const int* tile_idx, int B, int Tq, int Tk,
+           int H, int Hkv, float scale, float softcap, int window,
+           cudaStream_t stream) {
   constexpr int LD = HD + 1;
   const size_t smem =
       sizeof(float) * (2 * BQ * LD + 2 * BK * LD + BQ * (BK + 1)) +
       sizeof(int) * 2 * BK;
-  auto kern = bam_bwd_dq_kernel<T, HD>;
+  auto kern = bam_bwd_dq_kernel<T, HD, COMPACT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -169,8 +188,8 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, qb,
-      kb, qp, kp, static_cast<T*>(dq), Tq, Tk, H, Hkv, scale, softcap,
-      window);
+      kb, qp, kp, static_cast<T*>(dq), tile_ptr, tile_idx, Tq, Tk, H, Hkv,
+      scale, softcap, window);
   return (int)cudaGetLastError();
 }
 
@@ -178,13 +197,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32, 1 = bfloat16. q/dout/dq [B,Tq,H,hd], k/v
 // [B,Tk,Hkv,hd], all contiguous; lse/delta f32 [B,H,Tq]; bits/pos int32
-// [B,T]. Returns cudaGetLastError() after the launch.
+// [B,T]. With tile_ptr set, the compacted grid: int32 CSR rows tile_ptr
+// [ceil(Tq/64)+1] and tile_idx (k tiles of 32 keys, ascending per row);
+// both null for the dense grid. Returns cudaGetLastError() after the
+// launch.
 extern "C" int bam_bwd_dq(const void* q, const void* k, const void* v,
                           const void* dout, const void* lse,
                           const void* delta, const void* q_bits,
                           const void* kv_bits, const void* q_pos,
-                          const void* kv_pos, void* dq, int B, int Tq,
-                          int Tk, int H, int Hkv, int hd, int dtype,
+                          const void* kv_pos, void* dq,
+                          const void* tile_ptr, const void* tile_idx, int B,
+                          int Tq, int Tk, int H, int Hkv, int hd, int dtype,
                           float scale, float softcap, int window,
                           void* stream) {
   const float* ls = static_cast<const float*>(lse);
@@ -193,10 +216,17 @@ extern "C" int bam_bwd_dq(const void* q, const void* k, const void* v,
   const int* kb = static_cast<const int*>(kv_bits);
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(kv_pos);
+  const int* tp = static_cast<const int*>(tile_ptr);
+  const int* ti = static_cast<const int*>(tile_idx);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BAM_DQ_CASE(TYPE, HD)                                                 \
-  return launch<TYPE, HD>(q, k, v, dout, ls, dl, qb, kb, qp, kp, dq, B, Tq,   \
-                          Tk, H, Hkv, scale, softcap, window, st)
+  return tp != nullptr                                                        \
+             ? launch<TYPE, HD, true>(q, k, v, dout, ls, dl, qb, kb, qp, kp,  \
+                                      dq, tp, ti, B, Tq, Tk, H, Hkv, scale,   \
+                                      softcap, window, st)                    \
+             : launch<TYPE, HD, false>(q, k, v, dout, ls, dl, qb, kb, qp, kp, \
+                                       dq, nullptr, nullptr, B, Tq, Tk, H,    \
+                                       Hkv, scale, softcap, window, st)
   if (dtype == 0 && hd == 64) BAM_DQ_CASE(float, 64);
   if (dtype == 0 && hd == 128) BAM_DQ_CASE(float, 128);
   if (dtype == 1 && hd == 64) BAM_DQ_CASE(__nv_bfloat16, 64);

@@ -26,6 +26,18 @@
 // masked-score sentinel, and rows with l == 0 give out = 0 and
 // lse = -1e30. The mask rule is bam_mask.cuh's.
 //
+// The compacted grid (COMPACT = true) replaces the Pallas kernel's
+// block_map path (_bam_fwd_kernel_sparse, pallas_call with the
+// (q_blk, k_blk, first, last, active) scalar-prefetch steps). The host
+// turns the map's q-major steps into CSR rows (core/bam.py::block_csr):
+// the block of q tile i walks k tiles tile_idx[tile_ptr[i] ..
+// tile_ptr[i+1]) instead of all of them, ascending, through the same loop
+// body, so K and V of a tile outside the map are never read. The in-tile
+// skip stays (is_active & any(allowed) on the TPU), so for a map that
+// covers the mask the block accumulates exactly the dense kernel's tiles
+// in the same order and writes the same bits. An empty row writes the
+// empty-row conventions (out 0, lse -1e30; stats -1e30, 0, 0).
+//
 // The "stats" mode (context parallelism combines chunks of keys) stops
 // before the normalisation: the epilogue writes the f32 accumulator
 // acc = sum exp(s - m) V in the layout [B,H,Tq,hd], and m and l [B,H,Tq].
@@ -47,15 +59,18 @@ constexpr int JN = BK / 2; // scores per thread per tile
 
 // STATS = false: out is T [B,Tq,H,hd], lse f32 [B,H,Tq] or null.
 // STATS = true: out is f32 acc [B,H,Tq,hd], lse receives m, lsum l.
-template <typename T, int HD, bool STATS>
+// COMPACT = true: walk the k tiles of CSR row blockIdx.x of (tile_ptr
+// [nq+1], tile_idx) only; COMPACT = false: every k tile (both null).
+template <typename T, int HD, bool STATS, bool COMPACT>
 __global__ void __launch_bounds__(NT)
 bam_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const int* __restrict__ qbits,
                const int* __restrict__ kbits, const int* __restrict__ qpos,
                const int* __restrict__ kpos, void* __restrict__ out,
-               float* __restrict__ lse, float* __restrict__ lsum, int Tq,
-               int Tk, int H, int Hkv, float scale, float softcap,
-               int window) {
+               float* __restrict__ lse, float* __restrict__ lsum,
+               const int* __restrict__ tile_ptr,
+               const int* __restrict__ tile_idx, int Tq, int Tk, int H,
+               int Hkv, float scale, float softcap, int window) {
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 2;  // output columns per thread
   extern __shared__ float smem[];
@@ -86,7 +101,15 @@ bam_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < NC; ++c) acc[c] = 0.f;
   float m = NEG_INF, l = 0.f;
 
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
+  // the k tiles this block visits, ascending: all of them, or its CSR
+  // row of the block map
+  int it_beg = 0, it_end = (Tk + BK - 1) / BK;
+  if constexpr (COMPACT) {
+    it_beg = tile_ptr[blockIdx.x];
+    it_end = tile_ptr[blockIdx.x + 1];
+  }
+  for (int it = it_beg; it < it_end; ++it) {
+    const int k0 = (COMPACT ? tile_idx[it] : it) * BK;
     for (int i = tid; i < BK * HD; i += NT) {
       const int row = i / HD, d = i % HD, t = k0 + row;
       const size_t off = ((size_t)(b * Tk + t) * Hkv + hk) * HD + d;
@@ -176,25 +199,46 @@ bam_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD, bool STATS>
+template <typename T, int HD, bool STATS, bool COMPACT>
 int launch(const void* q, const void* k, const void* v, const int* qb,
            const int* kb, const int* qp, const int* kp, void* out,
-           float* lse, float* lsum, int B, int Tq, int Tk, int H, int Hkv,
+           float* lse, float* lsum, const int* tile_ptr,
+           const int* tile_idx, int B, int Tq, int Tk, int H, int Hkv,
            float scale, float softcap, int window, cudaStream_t stream) {
   constexpr int LD = HD + 1;
   const size_t smem =
       sizeof(float) * (BQ * LD + 2 * BK * LD + BQ * (BK + 1)) +
       sizeof(int) * 2 * BK;
-  auto kern = bam_fwd_kernel<T, HD, STATS>;
+  auto kern = bam_fwd_kernel<T, HD, STATS, COMPACT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Tq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), qb, kb, qp, kp, out, lse, lsum, Tq, Tk, H,
-      Hkv, scale, softcap, window);
+      static_cast<const T*>(v), qb, kb, qp, kp, out, lse, lsum, tile_ptr,
+      tile_idx, Tq, Tk, H, Hkv, scale, softcap, window);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int dispatch(const void* q, const void* k, const void* v, const int* qb,
+             const int* kb, const int* qp, const int* kp, void* out,
+             float* lse, float* lsum, const int* tile_ptr,
+             const int* tile_idx, int B, int Tq, int Tk, int H, int Hkv,
+             float scale, float softcap, int window, cudaStream_t stream) {
+#define BAM_FWD_LAUNCH(STATS, COMPACT)                                      \
+  return launch<T, HD, STATS, COMPACT>(q, k, v, qb, kb, qp, kp, out, lse,   \
+                                       lsum, tile_ptr, tile_idx, B, Tq, Tk, \
+                                       H, Hkv, scale, softcap, window,      \
+                                       stream)
+  if (lsum != nullptr) {
+    if (tile_ptr != nullptr) BAM_FWD_LAUNCH(true, true);
+    BAM_FWD_LAUNCH(true, false);
+  }
+  if (tile_ptr != nullptr) BAM_FWD_LAUNCH(false, true);
+  BAM_FWD_LAUNCH(false, false);
+#undef BAM_FWD_LAUNCH
 }
 
 }  // namespace
@@ -203,28 +247,29 @@ int launch(const void* q, const void* k, const void* v, const int* qb,
 // all contiguous; bits/pos int32 [B,T]. With lsum null ("out" and
 // "residual"): out [B,Tq,H,hd] in q's type, lse f32 [B,H,Tq] or null.
 // With lsum set ("stats"): out f32 [B,H,Tq,hd] (acc), lse f32 [B,H,Tq]
-// receives m and lsum l. Returns cudaGetLastError() after the launch.
+// receives m and lsum l. With tile_ptr set, the compacted grid: int32
+// CSR rows tile_ptr [ceil(Tq/64)+1] and tile_idx (k tiles of 32 keys,
+// ascending per row); both null for the dense grid. Returns
+// cudaGetLastError() after the launch.
 extern "C" int bam_fwd(const void* q, const void* k, const void* v,
                        const void* q_bits, const void* kv_bits,
                        const void* q_pos, const void* kv_pos, void* out,
-                       void* lse, void* lsum, int B, int Tq, int Tk, int H,
+                       void* lse, void* lsum, const void* tile_ptr,
+                       const void* tile_idx, int B, int Tq, int Tk, int H,
                        int Hkv, int hd, int dtype, float scale,
                        float softcap, int window, void* stream) {
   const int* qb = static_cast<const int*>(q_bits);
   const int* kb = static_cast<const int*>(kv_bits);
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(kv_pos);
+  const int* tp = static_cast<const int*>(tile_ptr);
+  const int* ti = static_cast<const int*>(tile_idx);
   float* ls = static_cast<float*>(lse);
   float* lt = static_cast<float*>(lsum);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BAM_FWD_CASE(TYPE, HD)                                              \
-  return lt != nullptr                                                      \
-             ? launch<TYPE, HD, true>(q, k, v, qb, kb, qp, kp, out, ls, lt, \
-                                      B, Tq, Tk, H, Hkv, scale, softcap,    \
-                                      window, st)                           \
-             : launch<TYPE, HD, false>(q, k, v, qb, kb, qp, kp, out, ls,    \
-                                       nullptr, B, Tq, Tk, H, Hkv, scale,   \
-                                       softcap, window, st)
+  return dispatch<TYPE, HD>(q, k, v, qb, kb, qp, kp, out, ls, lt, tp, ti,  \
+                            B, Tq, Tk, H, Hkv, scale, softcap, window, st)
   if (dtype == 0 && hd == 64) BAM_FWD_CASE(float, 64);
   if (dtype == 0 && hd == 128) BAM_FWD_CASE(float, 128);
   if (dtype == 1 && hd == 64) BAM_FWD_CASE(__nv_bfloat16, 64);

@@ -13,6 +13,12 @@ Dispatch on ``impl``:
 context parallelism (``core.context_parallel``), which combines them
 across chunks of keys and owns their gradient.
 
+Each entry point takes ``block_map=`` (a ``core.bam.BlockMask`` built at
+the kernels' tile, ``build_block_map(..., BLOCK_Q, BLOCK_K, window)``):
+the kernels then run on the compacted grid, and ``BamAttention`` carries
+the map to its backward, so K2 and K3 run compacted too. Pairs outside
+the map's tiles count as masked on every path, ``impl="xla"`` included.
+
 The kernels take any Tq, Tk and mask their own ragged edge, so unlike
 the JAX op nothing is padded to block multiples and there is no block
 size to choose.
@@ -21,8 +27,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import bam
 from repro_torch.kernels.bam_attention import (bam_flash_attention,
-                                               bam_flash_attention_bwd)
+                                               bam_flash_attention_bwd,
+                                               check_block_map)
 from repro_torch.kernels.ref import bam_attention_ref
 
 IMPLS = ("xla", "bam_kernel")
@@ -35,29 +43,30 @@ def _default_pos(B, T, device):
 
 def bam_attention_chunk_bwd(q, k, v, out, g, lse, q_bits, kv_bits, q_pos,
                             kv_pos, *, softcap: float = 0.0,
-                            window: int = 0):
+                            window: int = 0, block_map=None):
     """Flash backward from (out, lse) residuals: (dq, dk, dv) with dk/dv
     folded over GQA to [B,Tk,Hkv,hd]. As in the JAX package, (out, lse)
     may be a cross-chunk combined output and log-sum-exp; the result is
     then this chunk's exact share of the global-softmax gradients."""
     return bam_flash_attention_bwd(
         q, k, v, out, g.contiguous(), lse, q_bits, kv_bits, q_pos, kv_pos,
-        softcap=softcap, window=window)
+        softcap=softcap, window=window, block_map=block_map)
 
 
 class BamAttention(torch.autograd.Function):
-    """K1 forward in residual mode; K2 and K3 backward. Saves no tensor
-    of Tq·Tk elements."""
+    """K1 forward in residual mode; K2 and K3 backward, on the block
+    map's compacted grid when the forward had one. Saves no tensor of
+    Tq·Tk elements."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_bits, kv_bits, q_pos, kv_pos, softcap,
-                window):
+                window, block_map):
         out, lse = bam_flash_attention(
             q, k, v, q_bits, kv_bits, q_pos, kv_pos, softcap=softcap,
-            window=window, return_mode="residual")
+            window=window, return_mode="residual", block_map=block_map)
         ctx.save_for_backward(q, k, v, q_bits, kv_bits, q_pos, kv_pos, out,
                               lse)
-        ctx.softcap, ctx.window = softcap, window
+        ctx.softcap, ctx.window, ctx.block_map = softcap, window, block_map
         return out
 
     @staticmethod
@@ -65,14 +74,14 @@ class BamAttention(torch.autograd.Function):
         q, k, v, q_bits, kv_bits, q_pos, kv_pos, out, lse = ctx.saved_tensors
         dq, dk, dv = bam_attention_chunk_bwd(
             q, k, v, out, g, lse, q_bits, kv_bits, q_pos, kv_pos,
-            softcap=ctx.softcap, window=ctx.window)
-        return dq, dk, dv, None, None, None, None, None, None
+            softcap=ctx.softcap, window=ctx.window, block_map=ctx.block_map)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 @torch.no_grad()
 def bam_attention_stats(q, k, v, q_bits, kv_bits, q_pos=None, kv_pos=None,
                         *, softcap: float = 0.0, window: int = 0,
-                        impl: str = "bam_kernel"):
+                        impl: str = "bam_kernel", block_map=None):
     """Unnormalised flash-attention partials for cross-chunk combination:
     (acc [B,H,Tq,hd] f32 = Σ p·V, m [B,H,Tq], l [B,H,Tq]) from K1's stats
     mode, the mask evaluated inside the kernel (no [B,H,Tq,Tk] tensor on
@@ -91,14 +100,17 @@ def bam_attention_stats(q, k, v, q_bits, kv_bits, q_pos=None, kv_pos=None,
     return bam_flash_attention(
         q.contiguous(), k.contiguous(), v.contiguous(), q_bits.contiguous(),
         kv_bits.contiguous(), q_pos.contiguous(), kv_pos.contiguous(),
-        softcap=softcap, window=window, return_mode="stats")
+        softcap=softcap, window=window, return_mode="stats",
+        block_map=block_map)
 
 
 def bam_attention(q, k, v, q_bits, kv_bits, q_pos=None, kv_pos=None, *,
                   softcap: float = 0.0, window: int = 0,
-                  impl: str = "xla"):
+                  impl: str = "xla", block_map=None):
     """q: [B,Tq,H,hd]; k/v: [B,Tk,Hkv,hd]; bits int32 [B,T*]; positions
-    default to iota. Returns [B,Tq,H,hd], differentiable in q, k, v."""
+    default to iota. Returns [B,Tq,H,hd], differentiable in q, k, v.
+    ``block_map``: an optional host-precomputed ``core.bam.BlockMask``
+    (grid compaction: active tiles only)."""
     if impl not in IMPLS:
         raise ValueError(f"impl={impl!r}; the port has {IMPLS} "
                          f"(bam_interpret is a JAX-only mode)")
@@ -109,9 +121,13 @@ def bam_attention(q, k, v, q_bits, kv_bits, q_pos=None, kv_pos=None, *,
     if kv_pos is None:
         kv_pos = _default_pos(B, Tk, q.device)
     if impl == "xla":
+        tiles = None
+        if block_map is not None:
+            check_block_map(block_map, Tq, Tk, window)
+            tiles = bam.tile_mask(block_map, Tq, Tk, q.device)
         return bam_attention_ref(q, k, v, q_bits, kv_bits, q_pos, kv_pos,
-                                 softcap=softcap, window=window)
+                                 softcap=softcap, window=window, tiles=tiles)
     return BamAttention.apply(
         q.contiguous(), k.contiguous(), v.contiguous(), q_bits.contiguous(),
         kv_bits.contiguous(), q_pos.contiguous(), kv_pos.contiguous(),
-        float(softcap), int(window))
+        float(softcap), int(window), block_map)

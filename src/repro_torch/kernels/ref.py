@@ -16,12 +16,15 @@ NEG_INF = -1e30     # the kernels' masked-score sentinel and empty-row lse
 
 
 def masked_attention(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
-                     softcap: float = 0.0, window: int = 0, p_dtype=None):
+                     softcap: float = 0.0, window: int = 0, p_dtype=None,
+                     tiles=None):
     """q: [B,Tq,H,hd]; k/v: [B,Tk,Hkv,hd] (H % Hkv == 0); bits int32
     [B,T*]; pos int32 [B,T*]. Scores and softmax in f32; the normalised
     probabilities are rounded to ``p_dtype`` (if given) before the
-    product with V. Returns (out [B,Tq,H,hd] in q's dtype, lse [B,H,Tq]
-    f32); rows with no allowed key give out = 0 and lse = -1e30."""
+    product with V. ``tiles`` (bool [Tq, Tk], a block map's
+    ``core.bam.tile_mask``) further restricts the mask. Returns (out
+    [B,Tq,H,hd] in q's dtype, lse [B,H,Tq] f32); rows with no allowed
+    key give out = 0 and lse = -1e30."""
     hd = q.shape[-1]
     n_rep = q.shape[2] // k.shape[2]
     k = bam.repeat_kv(k, n_rep)
@@ -30,7 +33,10 @@ def masked_attention(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
     logits = logits * (hd ** -0.5)
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
-    mask = bam.allowed_mask(q_bits, kv_bits, q_pos, kv_pos, window)[:, None]
+    mask = bam.allowed_mask(q_bits, kv_bits, q_pos, kv_pos, window)
+    if tiles is not None:
+        mask = mask & tiles
+    mask = mask[:, None]
     logits = logits.masked_fill(~mask, NEG_INF)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m).masked_fill(~mask, 0.0)
@@ -67,10 +73,10 @@ def masked_stats(q, k, v, mask, *, softcap: float = 0.0, p_dtype=None):
 
 
 def bam_attention_ref(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
-                      softcap: float = 0.0, window: int = 0):
+                      softcap: float = 0.0, window: int = 0, tiles=None):
     """The JAX oracle's output: as ``masked_attention``, with the
     probabilities rounded to V's dtype (as ``repro.kernels.ref`` does).
     Returns [B,Tq,H,hd] in q's dtype; rows with no allowed key are 0."""
     return masked_attention(q, k, v, q_bits, kv_bits, q_pos, kv_pos,
                             softcap=softcap, window=window,
-                            p_dtype=v.dtype)[0]
+                            p_dtype=v.dtype, tiles=tiles)[0]

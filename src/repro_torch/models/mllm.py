@@ -9,6 +9,7 @@ unstacked, ``final_ln``), so the weight bridge is a copy.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -19,7 +20,7 @@ from repro_torch.configs.paper_mllm import (audio_encoder_config, llm_config,
                                             vision_encoder_config)
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import torch_dtype
+from repro_torch.models.transformer import remat, torch_dtype
 
 VISION_TOKENS = 576     # ~(1280x720 -> 24x24 patches), paper setup
 AUDIO_TOKENS = 750      # 30 s clip at Whisper 25 fps after conv stride
@@ -50,23 +51,29 @@ def encoder_init(cfg: ModelConfig, *, device="cuda",
     return Encoder(cfg, device=device, generator=generator)
 
 
+def _encoder_block(cfg: ModelConfig, lp: EncoderBlock, pos, x):
+    h = L.apply_norm(cfg, lp.ln1, x)
+    full = torch.ones((1, 1, 1, 1), dtype=torch.bool, device=x.device)
+    a, _ = L.run_attention(lp.attn, cfg, h, q_pos=pos,
+                           mask_fn=lambda: full, rope=False)
+    x = x + a
+    h = L.apply_norm(cfg, lp.ln2, x)
+    return x + L.run_mlp(lp.mlp, h, "gelu")
+
+
 def encoder_forward(model: Encoder, cfg: ModelConfig, embeds):
     """embeds: [B, T_m, d_m] precomputed frontend output. Every token
     attends every token (no RoPE, an all-true mask). The embeds are cast
     to the encoder's dtype first; the JAX function lets f32 embeds
-    promote bf16 weights to f32 instead (the same at f32)."""
+    promote bf16 weights to f32 instead (the same at f32). Each block is
+    rematerialised under ``cfg.remat`` when autograd records (a frozen
+    encoder runs under ``no_grad``, so only a trainable one is)."""
     B, Tm, _ = embeds.shape
     x = embeds.to(torch_dtype(cfg))
     pos = torch.arange(Tm, dtype=torch.int32,
                        device=x.device)[None].expand(B, Tm)
-    full = torch.ones((1, 1, 1, 1), dtype=torch.bool, device=x.device)
     for lp in model.layers:
-        h = L.apply_norm(cfg, lp.ln1, x)
-        a, _ = L.run_attention(lp.attn, cfg, h, q_pos=pos,
-                               mask_fn=lambda: full, rope=False)
-        x = x + a
-        h = L.apply_norm(cfg, lp.ln2, x)
-        x = x + L.run_mlp(lp.mlp, h, "gelu")
+        x = remat(cfg, functools.partial(_encoder_block, cfg, lp, pos), x)
     return L.apply_norm(cfg, model.final_ln, x)
 
 

@@ -15,8 +15,11 @@ port serves through the paged cache (``repro_torch.serving``).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import bam
@@ -144,10 +147,26 @@ def embed_tokens(model: TransformerLM, cfg: ModelConfig, batch):
     return x
 
 
+def _block_out(cfg: ModelConfig, p: Block, batch, layer_idx: int, x):
+    return _block(cfg, p, x, batch, layer_idx)[0]
+
+
+def remat(cfg: ModelConfig, fn, x):
+    """fn(x), rematerialised when ``cfg.remat`` is set and autograd is
+    recording: only x is kept, and the backward re-runs fn (non-reentrant
+    ``torch.utils.checkpoint``), as ``jax.checkpoint`` does in the JAX
+    package. Without grad, as in serving or a frozen encoder under
+    ``no_grad``, fn just runs."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, x, use_reentrant=False)
+    return fn(x)
+
+
 def hidden(model: TransformerLM, cfg: ModelConfig, batch):
     x = embed_tokens(model, cfg, batch)
     for i, lp in enumerate(model.layers):
-        x, _ = _block(cfg, lp, x, batch, i)
+        # partial binds this layer: the recompute runs after the loop
+        x = remat(cfg, functools.partial(_block_out, cfg, lp, batch, i), x)
     return L.apply_norm(cfg, model.final_ln, x)
 
 
