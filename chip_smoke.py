@@ -12,13 +12,19 @@ line is printed only when every phase ran and passed):
 
 1. Print the card's name and power limit; build the four CUDA kernels
    from ``src/repro_torch/kernels/csrc`` with nvcc (in parallel) and print
-   the build seconds and ptxas' register/spill report.
+   the build seconds and ptxas' register/spill report. Then the proof
+   that K1 runs on the tensor cores: ``cuobjdump --dump-sass`` of the
+   built ``bam_fwd`` library, ``HGMMA`` instructions counted per kernel
+   instantiation and printed beside ptxas' registers and spills; a check
+   fails if a bf16 instantiation of the K1 kernel (its mangled name holds
+   ``__nv_bfloat16``) has no HGMMA or spills.
 2. Hold each kernel against its plain PyTorch version on the card at its
    main path's shapes, printing max abs error beside its tolerance,
    kernel/plain/library ms and the roofline bound:
    - K1 (BAM forward) on q [1,T,32,128], k/v [1,T,8,128], T in {512,
      2000} causal and T = 2000 multimodal, bf16 and f32, plus a
-     softcap-50/window-256 case;
+     softcap-50/window-256 case and a bf16 head_dim-64 case (T = 2000
+     multimodal);
    - K2 (dQ) and K3 (dK/dV) at the train path's shapes: q [1,1600,32,128],
      k/v [1,1600,8,128] with the vlm layout's bits (512 text, 576 image,
      512 text), bf16 and f32, a softcap-50/window-256 case and a ragged
@@ -53,8 +59,9 @@ line is printed only when every phase ran and passed):
    ``llm_config("M")`` (Llama-3.1-8B widths) in bf16, random weights from
    a seeded generator. Launch counts are zeroed just before and read
    just after: K1 must launch once per layer per request, K4 > 0.
-   Then a torch.profiler window over 3 decode ticks of 4 rows prints the
-   device busy share and the top kernels by device time. One multimodal
+   Then torch.profiler windows over the step that prefills the longest
+   prompt (device time, K1's share) and over 3 decode ticks of 4 rows
+   (device busy share, top kernels by device time). One multimodal
    request is served again, prefilled in a 4-rank plan's layout: its
    pages are owned by the 4 ranks, and its agreement with the plan-less
    run is printed.
@@ -104,6 +111,8 @@ import argparse
 import copy
 import gc
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -176,6 +185,68 @@ class Smoke:
             self.failures.append(what)
 
 
+def ptxas_by_function(report: str):
+    """{mangled name: (registers, spill store bytes, spill load bytes)}
+    from nvcc's -Xptxas -v report."""
+    out, fn = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, [0, 0, 0])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn][1:] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn][0] = int(m.group(1))
+    return out
+
+
+def k1_sass_check(smoke: Smoke, _build) -> None:
+    """HGMMA instructions per kernel instantiation of the built bam_fwd
+    library (cuobjdump --dump-sass), printed beside ptxas' registers and
+    spills. Every bf16 instantiation of K1 must hold HGMMA and spill
+    nothing."""
+    lib = _build._lib_path("bam_fwd")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        sass = subprocess.run([tool, "--dump-sass", str(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+    except (OSError, subprocess.CalledProcessError) as err:
+        smoke.check(False, f"K1 SASS: cuobjdump failed: {err}")
+        return
+    hgmma, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            hgmma[fn] = 0
+        elif fn and "HGMMA" in line:
+            hgmma[fn] += 1
+    ptxas = ptxas_by_function(_build.ptxas_report("bam_fwd"))
+    bf16 = []
+    for fn, count in sorted(hgmma.items()):
+        regs, st, ld = ptxas.get(fn, (-1, -1, -1))
+        kind = re.search(r"(bam_fwd_(?:mma_)?kernel)I(\w+?)Li(\d+)"
+                         r"ELb(\d)ELb(\d)E", fn)
+        dtype = "bf16" if "__nv_bfloat16" in fn else "f32"
+        short = (f"{kind.group(1)}<{dtype}, hd {kind.group(3)}, "
+                 f"stats {kind.group(4)}, compact {kind.group(5)}>"
+                 if kind else fn)
+        print(f"  bam_fwd SASS {short}: {count} HGMMA, {regs} registers, "
+              f"spill stores {st} B, loads {ld} B", flush=True)
+        if "__nv_bfloat16" in fn:
+            bf16.append(count > 0 and st == 0 and ld == 0)
+    smoke.check(len(bf16) == 8 and all(bf16),
+                f"K1 SASS: {sum(bf16)} of {len(bf16)} bf16 instantiations "
+                f"(want 8) hold HGMMA and spill nothing")
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -188,7 +259,7 @@ def k1_cases(smoke: Smoke):
         bam_flash_attention, bam_flash_attention_torch)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    H, Hkv, hd = 32, 8, 128
+    H, Hkv = 32, 8
 
     def layout(kind, T):
         if kind == "causal":
@@ -199,13 +270,15 @@ def k1_cases(smoke: Smoke):
             [("text", 0, n_text // 2), ("mod", 1, 576),
              ("text", 0, n_text - n_text // 2)], T)
 
-    cases = [(T, kind, dt, 0.0, 0)
+    cases = [(T, kind, dt, 0.0, 0, 128)
              for T, kind in ((512, "causal"), (2000, "causal"),
                              (2000, "multimodal"))
              for dt in ("bfloat16", "float32")]
-    cases += [(300, "causal", dt, 50.0, 256) for dt in ("bfloat16", "float32")]
-    headline = (2000, "multimodal", "bfloat16", 0.0, 0)
-    for T, kind, dt, softcap, window in cases:
+    cases += [(300, "causal", dt, 50.0, 256, 128)
+              for dt in ("bfloat16", "float32")]
+    cases += [(2000, "multimodal", "bfloat16", 0.0, 0, 64)]
+    headline = (2000, "multimodal", "bfloat16", 0.0, 0, 128)
+    for T, kind, dt, softcap, window, hd in cases:
         dtype = getattr(torch, dt)
         q = torch.randn((1, T, H, hd), generator=gen, device="cuda").to(dtype)
         k = torch.randn((1, T, Hkv, hd), generator=gen, device="cuda").to(dtype)
@@ -221,11 +294,13 @@ def k1_cases(smoke: Smoke):
         err, ratio = compare(out, out_p, dt)
         err_lse = float((lse - lse_p).abs().max())
         name = f"K1 T={T} {kind} {dt} softcap={softcap} window={window}"
+        if hd != 128:
+            name += f" hd={hd}"
         smoke.check(ratio <= 1.0 and err_lse <= 1e-3,
                     f"{name}: max_abs_err out {err:.3e} (tol {TOL_TEXT[dt]}; "
                     f"worst |d|/tol {ratio:.3f}), lse {err_lse:.3e} "
                     f"(tol 1e-3)")
-        if (T, kind, dt, softcap, window) != headline:
+        if (T, kind, dt, softcap, window, hd) != headline:
             continue
         ms = cuda_ms(torch, lambda: bam_flash_attention(*args, **kw))
         plain_ms = cuda_ms(torch, lambda: bam_flash_attention_torch(*args, **kw),
@@ -1181,6 +1256,31 @@ def plan_prefill_check(smoke: Smoke, model, cfg, req, want, dtype: str):
         smoke.check(owners == [0, 1, 2, 3], text)
 
 
+def prefill_profile(smoke: Smoke, model, cfg, reqs):
+    """Device time of one engine step that prefills the longest prompt
+    (and decodes its first token), with K1's share (torch.profiler)."""
+    torch = smoke.torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import ServingEngine
+    req = max(reqs, key=lambda r: len(r["tokens"]))
+    eng = ServingEngine(model, cfg, num_pages=400, page_size=16,
+                        max_batch=4, attn="kernel", device="cuda")
+    eng.submit(**req)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in evs)
+    print(f"prefill profile, one {len(req['tokens'])}-token prompt: wall "
+          f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms"
+          + k1_share(evs), flush=True)
+
+
 def decode_profile(smoke: Smoke, model, cfg, reqs):
     """Device busy share and kernel time by name over 3 decode ticks of
     4 rows (torch.profiler), to see where a decode tick's time goes."""
@@ -1378,7 +1478,7 @@ def train_phase(smoke: Smoke):
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% busy); top "
           f"kernels: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
-              f"x{e.count}" for e in top), flush=True)
+              f"x{e.count}" for e in top) + k1_share(evs), flush=True)
     # the same step without remat, for comparison within this run
     mllm.llm_cfg = mllm.llm_cfg.replace(remat=False)
     torch.cuda.synchronize()
@@ -1494,6 +1594,13 @@ def cp_step(cfg, lay, group, ocfg, method):
     return step
 
 
+def k1_share(evs) -> str:
+    """K1's device time in a profiled window (every bam_fwd kernel)."""
+    k1 = [e for e in evs if "bam_fwd" in e.key]
+    ms = sum(e.self_device_time_total for e in k1) / 1e3
+    return f"; K1 (bam_fwd) {ms:.2f} ms x{sum(e.count for e in k1)}"
+
+
 def profile_step(torch, step, model, state, batch, label: str):
     """One more step under torch.profiler: prints the wall time, the
     device busy share and the top kernels by device time; returns
@@ -1514,7 +1621,7 @@ def profile_step(torch, step, model, state, batch, label: str):
           f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% "
           f"busy); top kernels: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
-              f"x{e.count}" for e in top), flush=True)
+              f"x{e.count}" for e in top) + k1_share(evs), flush=True)
     return busy_us / 1e3, wall_us / 1e3
 
 
@@ -1741,6 +1848,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     smoke = Smoke(torch)
+    k1_sass_check(smoke, _build)
     if "kernels" in phases:
         k1_cases(smoke)
         bwd_cases(smoke)
@@ -1754,6 +1862,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "serving" in phases:
         model, cfg, reqs = serving_phase(smoke)
+        prefill_profile(smoke, model, cfg, reqs)
         decode_profile(smoke, model, cfg, reqs)
         parity_phase(smoke, model, cfg, reqs)
         del model
