@@ -13,11 +13,12 @@ line is printed only when every phase ran and passed):
 1. Print the card's name and power limit; build the four CUDA kernels
    from ``src/repro_torch/kernels/csrc`` with nvcc (in parallel) and print
    the build seconds and ptxas' register/spill report. Then the proof
-   that K1 runs on the tensor cores: ``cuobjdump --dump-sass`` of the
-   built ``bam_fwd`` library, ``HGMMA`` instructions counted per kernel
-   instantiation and printed beside ptxas' registers and spills; a check
-   fails if a bf16 instantiation of the K1 kernel (its mangled name holds
-   ``__nv_bfloat16``) has no HGMMA or spills.
+   that K1, K2 and K3 run on the tensor cores: ``cuobjdump --dump-sass``
+   of the built ``bam_fwd``, ``bam_bwd_dq`` and ``bam_bwd_dkv``
+   libraries, ``HGMMA`` instructions counted per kernel instantiation
+   and printed beside ptxas' registers and spills; a check per library
+   fails unless each of its bf16 instantiations (mangled names holding
+   ``__nv_bfloat16``: 8 of K1, 4 of K2, 4 of K3) has HGMMA and no spill.
 2. Hold each kernel against its plain PyTorch version on the card at its
    main path's shapes, printing max abs error beside its tolerance,
    kernel/plain/library ms and the roofline bound:
@@ -29,6 +30,12 @@ line is printed only when every phase ran and passed):
      k/v [1,1600,8,128] with the vlm layout's bits (512 text, 576 image,
      512 text), bf16 and f32, a softcap-50/window-256 case and a ragged
      T = 1000; K3 run twice must give the same bits;
+   - bf16 K2 and K3 at head_dim 64 (vlm layout, 32/8 heads) and at batch
+     2 (a row of three packed documents, a multimodal row; T = 1000) with
+     GQA 1:1 (8/8 heads of 128) and 4:1 (16/4 heads of 64, softcap 30,
+     window 100), dense and compacted under the batch's map: each within
+     ``compare`` of its plain version, K3 bit-identical on a second run,
+     the compacted grid torch.equal to the dense one;
    - K4 (paged decode) on a [P,16,8,128] page pool with 4 rows, one empty;
    - at the most loaded rank's share of a 4-rank LPT plan of
      ``random_multimodal_bits(4096, "ee", seed=0)`` (block 128) with
@@ -80,9 +87,10 @@ line is printed only when every phase ran and passed):
    in the backward's recompute: 64. Frozen parameters
    must be bit-identical afterwards (torch.equal against a host copy),
    the projector must have moved, every loss must be finite. A
-   torch.profiler window over a fourth step prints the device busy share
-   and the top kernels; a fifth step without remat prints its time and
-   peak memory beside the remat steps'.
+   torch.profiler window over a fourth step prints the device busy share,
+   the top kernels and K1's, K2's and K3's device time; a fifth step
+   without remat prints its time and peak memory beside the remat
+   steps'.
 6. Train parity: the same model at f32 with 2 LLM and 2 encoder layers at
    full width; the kernel path and the plain path (attn_impl="xla"), from
    the same weights and batches, give the same loss (rel 1e-5) and
@@ -95,8 +103,9 @@ line is printed only when every phase ran and passed):
    counts are zeroed just before and read just after each step: K2 and
    K3 must launch 28 times per step, K1 stats 28 or, under the config's
    ``remat`` (on for qwen3-1.7b), 56; K1 residual and K4 never. A fourth
-   allgather step runs under the profiler, and a fifth without remat
-   prints its time and peak memory. One
+   allgather step runs under the profiler (K1 stats', K2's and K3's
+   device time beside the top kernels), and a fifth without remat prints
+   its time and peak memory. One
    unpermuted non-CP step on the kernel path must agree with step 0 of
    both runs within rel 2e-2 (bf16).
 8. CP parity: at f32, full width, 2 layers, the CP step (both methods,
@@ -206,45 +215,60 @@ def ptxas_by_function(report: str):
     return out
 
 
-def k1_sass_check(smoke: Smoke, _build) -> None:
-    """HGMMA instructions per kernel instantiation of the built bam_fwd
-    library (cuobjdump --dump-sass), printed beside ptxas' registers and
-    spills. Every bf16 instantiation of K1 must hold HGMMA and spill
-    nothing."""
-    lib = _build._lib_path("bam_fwd")
+# the libraries whose bf16 instantiations run on the tensor cores, and how
+# many each has: K1 (3 modes' epilogues x compact x hd), K2, K3 (compact x hd)
+SASS_LIBS = {"bam_fwd": ("K1", 8), "bam_bwd_dq": ("K2", 4),
+             "bam_bwd_dkv": ("K3", 4)}
+
+
+def short_name(fn: str) -> str:
+    """``kernel<dtype, hd N, flags>`` from a mangled instantiation name."""
+    m = re.search(r"\d+(bam_\w*?kernel)I(.*)", fn)
+    if not m:
+        return fn
+    hd = re.search(r"Li(\d+)E", m.group(2))
+    flags = re.findall(r"Lb(\d)E", m.group(2))
+    dtype = "bf16" if "__nv_bfloat16" in fn else "f32"
+    return (f"{m.group(1)}<{dtype}, hd {hd.group(1) if hd else '?'}, "
+            f"flags {''.join(flags)}>")
+
+
+def sass_check(smoke: Smoke, _build) -> None:
+    """HGMMA instructions per kernel instantiation of the built bam_fwd,
+    bam_bwd_dq and bam_bwd_dkv libraries (cuobjdump --dump-sass), printed
+    beside ptxas' registers and spills. Every bf16 instantiation of K1
+    (8), K2 (4) and K3 (4) must hold HGMMA and spill nothing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    try:
-        sass = subprocess.run([tool, "--dump-sass", str(lib)],
-                              capture_output=True, text=True,
-                              check=True).stdout
-    except (OSError, subprocess.CalledProcessError) as err:
-        smoke.check(False, f"K1 SASS: cuobjdump failed: {err}")
-        return
-    hgmma, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = m.group(1)
-            hgmma[fn] = 0
-        elif fn and "HGMMA" in line:
-            hgmma[fn] += 1
-    ptxas = ptxas_by_function(_build.ptxas_report("bam_fwd"))
-    bf16 = []
-    for fn, count in sorted(hgmma.items()):
-        regs, st, ld = ptxas.get(fn, (-1, -1, -1))
-        kind = re.search(r"(bam_fwd_(?:mma_)?kernel)I(\w+?)Li(\d+)"
-                         r"ELb(\d)ELb(\d)E", fn)
-        dtype = "bf16" if "__nv_bfloat16" in fn else "f32"
-        short = (f"{kind.group(1)}<{dtype}, hd {kind.group(3)}, "
-                 f"stats {kind.group(4)}, compact {kind.group(5)}>"
-                 if kind else fn)
-        print(f"  bam_fwd SASS {short}: {count} HGMMA, {regs} registers, "
-              f"spill stores {st} B, loads {ld} B", flush=True)
-        if "__nv_bfloat16" in fn:
-            bf16.append(count > 0 and st == 0 and ld == 0)
-    smoke.check(len(bf16) == 8 and all(bf16),
-                f"K1 SASS: {sum(bf16)} of {len(bf16)} bf16 instantiations "
-                f"(want 8) hold HGMMA and spill nothing")
+    for lib, (key, want) in SASS_LIBS.items():
+        try:
+            sass = subprocess.run([tool, "--dump-sass",
+                                   str(_build._lib_path(lib))],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
+        except (OSError, subprocess.CalledProcessError) as err:
+            smoke.check(False, f"{key} SASS: cuobjdump failed: {err}")
+            continue
+        hgmma, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                hgmma[fn] = 0
+            elif fn and "HGMMA" in line:
+                hgmma[fn] += 1
+        ptxas = ptxas_by_function(_build.ptxas_report(lib))
+        bf16 = []
+        for fn, count in sorted(hgmma.items()):
+            regs, st, ld = ptxas.get(fn, (-1, -1, -1))
+            print(f"  {lib} SASS {short_name(fn)}: {count} HGMMA, {regs} "
+                  f"registers, spill stores {st} B, loads {ld} B",
+                  flush=True)
+            if "__nv_bfloat16" in fn:
+                bf16.append(count > 0 and st == 0 and ld == 0)
+        smoke.check(len(bf16) == want and all(bf16),
+                    f"{key} SASS: {sum(bf16)} of {len(bf16)} bf16 "
+                    f"instantiations (want {want}) hold HGMMA and spill "
+                    f"nothing")
 
 
 # ---------------------------------------------------------------------------
@@ -540,6 +564,72 @@ def k4_cases(smoke: Smoke):
 
 
 # ---------------------------------------------------------------------------
+def bwd_more_cases(smoke: Smoke):
+    """bf16 K2 and K3 beyond the train path's shapes: head_dim 64 at the
+    vlm layout (T = 1600, 32/8 heads); batch 2 at T = 1000, one row of
+    three packed documents and one multimodal row, with GQA 1:1 (8/8
+    heads of 128) and 4:1 (16/4 heads of 64, softcap 30, window 100).
+    Each dense and compacted under the batch's block map: within
+    ``compare`` of the plain version, K3 bit-identical on a second run,
+    the compacted grid torch.equal to the dense one."""
+    torch = smoke.torch
+    from repro_torch.core import bam
+    from repro_torch.kernels.bam_attention import (
+        BLOCK_K, BLOCK_Q, bam_bwd_dkv, bam_bwd_dkv_torch, bam_bwd_dq,
+        bam_bwd_dq_torch, bam_flash_attention, bwd_delta)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    docs = [("text", 0, 300), ("newdoc", 0, 0), ("text", 0, 400),
+            ("newdoc", 0, 0), ("text", 0, 300)]
+    mm = [("text", 0, 100), ("mod", 1, 400), ("text", 0, 500)]
+    cases = [("vlm layout, 32/8 heads of 64", 1600, [vlm_segments(1600)],
+              32, 8, 64, 0.0, 0),
+             ("batch 2 (3 documents; multimodal), GQA 1:1, 8/8 heads of "
+              "128", 1000, [docs, mm], 8, 8, 128, 0.0, 0),
+             ("batch 2 (3 documents; multimodal), GQA 4:1, 16/4 heads of "
+              "64, softcap 30, window 100", 1000, [docs, mm], 16, 4, 64,
+              30.0, 100)]
+    dt = "bfloat16"
+    for name, T, rows, H, Hkv, hd, softcap, window in cases:
+        pairs = [bam.build_sample_bits(r, T) for r in rows]
+        bits_np = np.stack([b for b, _ in pairs])
+        pos_np = np.stack([p for _, p in pairs])
+        bits, pos = (torch.from_numpy(x).cuda() for x in (bits_np, pos_np))
+        B = len(rows)
+        q, do = (torch.randn((B, T, H, hd), generator=gen,
+                             device="cuda").bfloat16() for _ in range(2))
+        k, v = (torch.randn((B, T, Hkv, hd), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        kw = dict(softcap=softcap, window=window)
+        out, lse = bam_flash_attention(q, k, v, bits, bits, pos, pos,
+                                       return_mode="residual", **kw)
+        args = (q, k, v, do, lse, bwd_delta(out, do), bits, bits, pos, pos)
+        bm = bam.build_block_map(bits_np, bits_np, pos_np, pos_np, BLOCK_Q,
+                                 BLOCK_K, window)
+        got = {}
+        for grid, extra in (("dense", {}), ("compacted", {"block_map": bm})):
+            dq = bam_bwd_dq(*args, **kw, **extra)
+            dk, dv = bam_bwd_dkv(*args, **kw, **extra)
+            dk2, dv2 = bam_bwd_dkv(*args, **kw, **extra)
+            torch.cuda.synchronize()
+            _, r_dq = compare(dq, bam_bwd_dq_torch(*args, **kw, **extra), dt)
+            dk_p, dv_p = bam_bwd_dkv_torch(*args, **kw, **extra)
+            _, r_dk = compare(dk, dk_p, dt)
+            _, r_dv = compare(dv, dv_p, dt)
+            same = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+            smoke.check(r_dq <= 1.0 and r_dk <= 1.0 and r_dv <= 1.0 and same,
+                        f"K2/K3 {grid} {name} bf16: worst |d|/tol dq "
+                        f"{r_dq:.3f}, dk {r_dk:.3f}, dv {r_dv:.3f} (tol "
+                        f"{TOL_TEXT[dt]}); K3 second run bit-identical: "
+                        f"{same}")
+            got[grid] = (dq, dk, dv)
+        equal = all(torch.equal(a, b) for a, b in zip(got["dense"],
+                                                      got["compacted"]))
+        smoke.check(equal, f"K2c/K3c {name} bf16 (skip fraction "
+                    f"{bm.skip_fraction:.3f}): torch.equal to the dense "
+                    f"K2/K3: {equal}")
+
+
 # Phase 2, continued: K1's stats mode and K2/K3 at a context-parallel share
 # ---------------------------------------------------------------------------
 
@@ -1278,7 +1368,7 @@ def prefill_profile(smoke: Smoke, model, cfg, reqs):
     busy_us = sum(e.self_device_time_total for e in evs)
     print(f"prefill profile, one {len(req['tokens'])}-token prompt: wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms"
-          + k1_share(evs), flush=True)
+          + bam_shares(evs), flush=True)
 
 
 def decode_profile(smoke: Smoke, model, cfg, reqs):
@@ -1478,7 +1568,7 @@ def train_phase(smoke: Smoke):
           f"{busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% busy); top "
           f"kernels: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
-              f"x{e.count}" for e in top) + k1_share(evs), flush=True)
+              f"x{e.count}" for e in top) + bam_shares(evs), flush=True)
     # the same step without remat, for comparison within this run
     mllm.llm_cfg = mllm.llm_cfg.replace(remat=False)
     torch.cuda.synchronize()
@@ -1594,11 +1684,17 @@ def cp_step(cfg, lay, group, ocfg, method):
     return step
 
 
-def k1_share(evs) -> str:
-    """K1's device time in a profiled window (every bam_fwd kernel)."""
-    k1 = [e for e in evs if "bam_fwd" in e.key]
-    ms = sum(e.self_device_time_total for e in k1) / 1e3
-    return f"; K1 (bam_fwd) {ms:.2f} ms x{sum(e.count for e in k1)}"
+def bam_shares(evs) -> str:
+    """K1's, K2's and K3's device time in a profiled window (every
+    bam_fwd, bam_bwd_dq and bam_bwd_dkv kernel; those that ran)."""
+    out = ""
+    for key, lib in (("K1", "bam_fwd"), ("K2", "bam_bwd_dq"),
+                     ("K3", "bam_bwd_dkv")):
+        ev = [e for e in evs if lib in e.key]
+        if ev:
+            ms = sum(e.self_device_time_total for e in ev) / 1e3
+            out += f"; {key} ({lib}) {ms:.2f} ms x{sum(e.count for e in ev)}"
+    return out
 
 
 def profile_step(torch, step, model, state, batch, label: str):
@@ -1621,7 +1717,7 @@ def profile_step(torch, step, model, state, batch, label: str):
           f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% "
           f"busy); top kernels: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
-              f"x{e.count}" for e in top) + k1_share(evs), flush=True)
+              f"x{e.count}" for e in top) + bam_shares(evs), flush=True)
     return busy_us / 1e3, wall_us / 1e3
 
 
@@ -1848,10 +1944,11 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     smoke = Smoke(torch)
-    k1_sass_check(smoke, _build)
+    sass_check(smoke, _build)
     if "kernels" in phases:
         k1_cases(smoke)
         bwd_cases(smoke)
+        bwd_more_cases(smoke)
         k4_cases(smoke)
         cp_kernel_cases(smoke)
     if "compact" in phases:

@@ -305,12 +305,18 @@ class BlockCSR(NamedTuple):
     """A block map's active tiles as int32 CSR on one device: row iq of
     ``q_ptr``/``q_cols`` lists q-block iq's active k-blocks, row ik of
     ``k_ptr``/``k_rows`` k-block ik's active q-blocks, both ascending.
-    The compacted kernels walk these rows (the Pallas kernels' first /
-    last / active flags become the row bounds)."""
+    Row j of ``k64_ptr``/``k64_rows`` lists the q-blocks active in
+    k-block 2j or 2j + 1 (the k-major rows' ascending union), each as 4 *
+    q-block + a flag per k-block (1: 2j active, 2: 2j + 1 active), for a
+    kernel whose block owns two k-blocks (the bf16 K3). The compacted
+    kernels walk these rows (the Pallas kernels' first / last / active
+    flags become the row bounds)."""
     q_ptr: torch.Tensor     # [nq + 1]
     q_cols: torch.Tensor    # [active tiles of the q-major list]
     k_ptr: torch.Tensor     # [nk + 1]
     k_rows: torch.Tensor    # [active tiles of the k-major list]
+    k64_ptr: torch.Tensor   # [ceil(nk / 2) + 1]
+    k64_rows: torch.Tensor  # [entries of the k-block pairs' union]
 
 
 def _csr(active: np.ndarray, device):
@@ -321,11 +327,28 @@ def _csr(active: np.ndarray, device):
             torch.from_numpy(np.ascontiguousarray(idx)).to(device))
 
 
+def _pair_csr(active_k: np.ndarray, device):
+    """CSR of k-block pairs from the k-major activity [nk, nq]: per pair
+    row, the q-blocks active in either, as 4 * q-block + half flags."""
+    nk, nq = active_k.shape
+    halves = np.zeros(((nk + 1) // 2, 2, nq), np.int32)
+    halves.reshape(-1, nq)[:nk] = active_k
+    flags = halves[:, 0] | (halves[:, 1] << 1)      # [pairs, nq]
+    rows, cols = np.nonzero(flags)                  # row-major: ascending
+    ptr = np.zeros(flags.shape[0] + 1, np.int32)
+    np.cumsum((flags != 0).sum(axis=1), out=ptr[1:])
+    idx = (4 * cols + flags[rows, cols]).astype(np.int32)
+    return (torch.from_numpy(ptr).to(device),
+            torch.from_numpy(np.ascontiguousarray(idx)).to(device))
+
+
 @functools.lru_cache(maxsize=64)
 def _block_csr(block_map: BlockMask, device: torch.device) -> BlockCSR:
     q_ptr, q_cols = _csr(block_map.active_tiles("q"), device)
-    k_ptr, k_rows = _csr(block_map.active_tiles("k").T, device)
-    return BlockCSR(q_ptr, q_cols, k_ptr, k_rows)
+    active_k = block_map.active_tiles("k").T
+    k_ptr, k_rows = _csr(active_k, device)
+    return BlockCSR(q_ptr, q_cols, k_ptr, k_rows,
+                    *_pair_csr(active_k, device))
 
 
 def block_csr(block_map: BlockMask, device) -> BlockCSR:

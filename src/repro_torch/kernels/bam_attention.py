@@ -18,7 +18,8 @@ grid, the counterpart of the Pallas kernels' ``block_map`` path
 (``_bam_fwd_kernel_sparse``, ``_bam_bwd_dq_kernel_sparse``,
 ``_bam_bwd_dkv_kernel_sparse``). The kernels then walk only the active
 tiles of the map's CSR rows (``core.bam.block_csr``): q-major for K1 and
-K2, k-major for K3. Pairs outside the map's tiles count as masked, so the
+K2, k-major for K3 (in bf16, whose block owns 64 keys, the union of each
+pair of k-major rows). Pairs outside the map's tiles count as masked, so the
 plain versions AND the mask with ``core.bam.tile_mask``.
 
 The [T, T] mask is never materialised by a kernel: each tile of it is
@@ -76,13 +77,14 @@ def _tiles(block_map, q, k, major: str):
 
 
 def _csr_args(block_map, device, major: str):
-    """(row pointers, column indices) for a launch; (None, None) on the
-    dense grid."""
+    """(row pointers, column indices) for a launch, of the q-major
+    (``"q"``), k-major (``"k"``) or 64-key k-major (``"k64"``) rows;
+    (None, None) on the dense grid."""
     if block_map is None:
         return None, None
     csr = bam.block_csr(block_map, device)
-    ptr, idx = (csr.q_ptr, csr.q_cols) if major == "q" else (csr.k_ptr,
-                                                             csr.k_rows)
+    ptr, idx = {"q": (csr.q_ptr, csr.q_cols), "k": (csr.k_ptr, csr.k_rows),
+                "k64": (csr.k64_ptr, csr.k64_rows)}[major]
     return ptr.data_ptr(), idx.data_ptr()
 
 
@@ -368,8 +370,11 @@ def bam_bwd_dkv(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos, *,
                 softcap: float = 0.0, window: int = 0, block_map=None):
     """K3: (dK, dV) [B,Tk,Hkv,hd] in k's dtype, folded over the query
     heads of each KV head inside the kernel (no atomics: the same bits
-    every run). Any Tq, Tk. With ``block_map`` each k block walks only
-    its active q blocks (k-major list), each as two 32-row tiles."""
+    every run). Any Tq, Tk. With ``block_map`` each block walks only its
+    active q blocks, each as two 32-row tiles: in f32 a 32-key block its
+    k-major row, in bf16 a 64-key block the union of its two k-major
+    rows (``k64_ptr``/``k64_rows``), masking a half's pairs in a q block
+    its own row does not list."""
     args = (q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos)
     kw = dict(softcap=softcap, window=window, block_map=block_map)
     if _check_bwd(*args, block_map, window):
@@ -377,7 +382,8 @@ def bam_bwd_dkv(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos, *,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = _bwd_entry("bam_bwd_dkv", 2)(
         *_bwd_args(*args), dk.data_ptr(), dv.data_ptr(),
-        *_csr_args(block_map, q.device, "k"),
+        *_csr_args(block_map, q.device,
+                   "k64" if q.dtype == torch.bfloat16 else "k"),
         *_bwd_scalars(q, k, softcap, window))
     _build.check("bam_bwd_dkv", rc)
     _count(bam_bwd_dkv, block_map)

@@ -96,6 +96,7 @@
 
 #include "bam_mask.cuh"
 #include "bam_mma.cuh"
+#include "bam_tiles.cuh"
 
 namespace {
 
@@ -103,14 +104,6 @@ constexpr int BQ = 64;     // q rows per block
 constexpr int BK = 32;     // keys per tile
 constexpr int NT = 128;    // threads per block: one warpgroup
 constexpr int JN = BK / 2; // f32: scores per thread per tile
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x, flushing results below 2^-126 to 0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // float32: two threads per q row, f32 FMAs.
 // STATS = false: out is T [B,Tq,H,hd], lse f32 [B,H,Tq] or null.
@@ -295,40 +288,6 @@ size_t mma_smem(int Tk) {
          2 * ((nk + 31) / 32) * sizeof(unsigned) + (nk + 1) * sizeof(int);
 }
 
-// The block's 64 q rows, merged: samples [smin, smax], the OR and the
-// AND of their attends-sets, the modality ids of modality rows (mset),
-// the positions [pmin, pmax] of text rows (pmax < pmin if none), the
-// range of own-modality ids, and whether every row is a token (t < Tq,
-// bits != 0). maybe() holds for every key some row allows (see
-// allowed()), so a tile whose 32 keys all fail it has no allowed pair;
-// every() holds only for a key that every row allows, so a tile whose
-// 32 keys all pass it needs no mask.
-struct RowsSummary {
-  unsigned smin, smax, qor, qand, mset, qm_min, qm_max;
-  int pmin, pmax;
-  bool all_valid;
-
-  __device__ __forceinline__ bool maybe(unsigned kb, int kp,
-                                        int window) const {
-    if (kb == 0u) return false;
-    const unsigned ks = (kb >> 23) & 0xFFu, km = (kb >> 16) & 0x7Fu;
-    if (ks < smin || ks > smax || km >= 16u || !((qor >> km) & 1u))
-      return false;
-    if ((mset >> km) & 1u) return true;
-    return pmin <= pmax && kp <= pmax && (window == 0 || pmin - kp < window);
-  }
-
-  __device__ __forceinline__ bool every(unsigned kb, int kp,
-                                        int window) const {
-    if (!all_valid || kb == 0u || smin != smax) return false;
-    const unsigned ks = (kb >> 23) & 0xFFu, km = (kb >> 16) & 0x7Fu;
-    if (ks != smin || km >= 16u || !((qand >> km) & 1u)) return false;
-    if (qm_max == 0u)   // all text rows
-      return kp <= pmin && (window == 0 || pmax - kp < window);
-    return qm_min == qm_max && km == qm_min;
-  }
-};
-
 template <typename T, int HD, bool STATS, bool COMPACT>
 __global__ void __launch_bounds__(NT)
 bam_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -387,111 +346,18 @@ bam_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     n_ent = tile_ptr[qt + 1] - e_beg;
   }
   const int n_words = (n_ent + 31) / 32;
-  unsigned* sFull = sAct + n_words;
-  int* sList = reinterpret_cast<int*>(sFull + n_words);   // [count, tiles]
+  int* sList = reinterpret_cast<int*>(sAct + 2 * n_words);  // [count, tiles]
   auto tile_of = [&](int e) { return COMPACT ? tile_idx[e_beg + e] : e; };
 
-  // 1. the rows' summary (warps 0 and 1 hold one row per lane)
-  {
-    unsigned smin = 0xFFu, smax = 0u, qor = 0u, qand = ~0u, mset = 0u;
-    unsigned qm_min = ~0u, qm_max = 0u;
-    int pmin = INT_MAX, pmax = INT_MIN;
-    const int t = q0 + tid;
-    const unsigned qb =
-        (tid < BQ && t < Tq) ? (unsigned)qbits[(size_t)b * Tq + t] : 0u;
-    if (qb != 0u) {
-      const unsigned qm = (qb >> 16) & 0x7Fu;
-      smin = smax = (qb >> 23) & 0xFFu;
-      qor = qand = qb & 0xFFFFu;
-      qm_min = qm_max = qm;
-      if (qm == 0u)
-        pmin = pmax = qpos[(size_t)b * Tq + t];
-      else if (qm < 16u)
-        mset = 1u << qm;
-    } else if (tid < BQ) {
-      qand = 0u;
-    }
-    const unsigned all_valid =
-        __reduce_and_sync(0xffffffffu, (tid >= BQ || qb != 0u) ? 1u : 0u);
-    smin = __reduce_min_sync(0xffffffffu, smin);
-    smax = __reduce_max_sync(0xffffffffu, smax);
-    qor = __reduce_or_sync(0xffffffffu, qor | (mset << 16));
-    qand = __reduce_and_sync(0xffffffffu, qand);
-    qm_min = __reduce_min_sync(0xffffffffu, qm_min);
-    qm_max = __reduce_max_sync(0xffffffffu, qm_max);
-    pmin = __reduce_min_sync(0xffffffffu, pmin);
-    pmax = __reduce_max_sync(0xffffffffu, pmax);
-    if (lane == 0) {
-      int* w = sSum + warp * 8;
-      w[0] = (int)(smin | (smax << 8));
-      w[1] = (int)qor;
-      w[2] = (int)qand;
-      w[3] = (int)qm_min;
-      w[4] = (int)qm_max;
-      w[5] = pmin;
-      w[6] = pmax;
-      w[7] = (int)all_valid;
-    }
-    for (int i = tid; i < 2 * n_words; i += NT) sAct[i] = 0u;
-  }
-  __syncthreads();
-  RowsSummary rs{0xFFu, 0u, 0u, ~0u, 0u, ~0u, 0u, INT_MAX, INT_MIN, true};
-#pragma unroll
-  for (int w = 0; w < NT / 32; ++w) {
-    const int* ws = sSum + w * 8;
-    rs.smin = min(rs.smin, (unsigned)ws[0] & 0xFFu);
-    rs.smax = max(rs.smax, (unsigned)ws[0] >> 8);
-    rs.qor |= (unsigned)ws[1] & 0xFFFFu;
-    rs.mset |= (unsigned)ws[1] >> 16;
-    rs.qand &= (unsigned)ws[2];
-    rs.qm_min = min(rs.qm_min, (unsigned)ws[3]);
-    rs.qm_max = max(rs.qm_max, (unsigned)ws[4]);
-    rs.pmin = min(rs.pmin, ws[5]);
-    rs.pmax = max(rs.pmax, ws[6]);
-    rs.all_valid = rs.all_valid && ws[7] != 0;
-  }
-
-  // 2. which entries to compute, and which need no mask, from bits
-  // alone: warp w takes entries w, w + 4, ..., one key per lane, sixteen
-  // entries' loads in flight
-  constexpr int SCAN = 16;
-  for (int e0 = warp; e0 < n_ent; e0 += SCAN * (NT / 32)) {
-    unsigned kbv[SCAN];
-    int kpv[SCAN];
-#pragma unroll
-    for (int u = 0; u < SCAN; ++u) {
-      const int e = e0 + u * (NT / 32);
-      const int t = e < n_ent ? tile_of(e) * BK + lane : Tk;
-      kbv[u] = t < Tk ? (unsigned)kb_row[t] : 0u;
-      kpv[u] = t < Tk ? kp_row[t] : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < SCAN; ++u) {
-      const int e = e0 + u * (NT / 32);
-      const bool any = __any_sync(0xffffffffu, rs.maybe(kbv[u], kpv[u],
-                                                         window));
-      const bool all = __all_sync(0xffffffffu, rs.every(kbv[u], kpv[u],
-                                                         window));
-      if (any && lane == 0) atomicOr(&sAct[e >> 5], 1u << (e & 31));
-      if (all && lane == 0) atomicOr(&sFull[e >> 5], 1u << (e & 31));
-    }
-  }
-  __syncthreads();
-
-  // the tiles to compute, ascending, as a list: tile index, and bit 31
-  // set where no mask is needed
-  if (warp == 0) {
-    int count = 0;
-    for (int w = 0; w < n_words; ++w) {
-      const unsigned act = sAct[w], full = sFull[w];
-      if ((act >> lane) & 1u)
-        sList[1 + count + __popc(act & ((1u << lane) - 1u))] =
-            tile_of(w * 32 + lane) | (int)(((full >> lane) & 1u) << 31);
-      count += __popc(act);
-    }
-    if (lane == 0) sList[0] = count;
-  }
-  __syncthreads();
+  // 1. the rows' summary; 2. which entries to compute, and which need
+  // no mask, from bits alone, listed ascending: tile index, and bit 31
+  // set where no mask is needed (bam_tiles.cuh)
+  for (int i = tid; i < 2 * n_words; i += NT) sAct[i] = 0u;
+  const RowsSummary rs = summarize_rows(qbits + (size_t)b * Tq,
+                                        qpos + (size_t)b * Tq, q0, Tq, sSum,
+                                        tid);
+  list_tiles(rs, n_ent, tile_of, kb_row, kp_row, Tk, window, sAct, sList,
+             tid);
   const int n_tiles = sList[0];
   const int* tiles = sList + 1;
 
@@ -502,7 +368,7 @@ bam_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // for it. No wgmma is in flight across steps. K and its bits, and V,
   // take two buffers each: buffer j % 2 holds tile j.
   auto load_k = [&](int tile, int st) {
-    const int k0 = (tile & 0x7FFFFFFF) * BK;
+    const int k0 = (tile & ITEM_TILE) * BK;
     cp_async_tile<BK, HD, NT>(sK + st * KB, kbase, k0, Tk, (size_t)Hkv * HD,
                               tid);
     if (tid < 2 * BK) {   // bits of the tile's keys, then their positions
@@ -513,7 +379,7 @@ bam_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   };
   auto load_v = [&](int tile, int st) {
     cp_async_tile<BK, HD, NT>(sV + st * KB, vbase,
-                              (tile & 0x7FFFFFFF) * BK, Tk,
+                              (tile & ITEM_TILE) * BK, Tk,
                               (size_t)Hkv * HD, tid);
   };
   // wgmma descriptors of Q and of each K and V buffer; a k16 step moves
@@ -562,21 +428,7 @@ bam_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     bool ok[16];
     if constexpr (!FULL) {
       const int* kb_s = sBits + st * 2 * BK;
-      const int* kp_s = kb_s + BK;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int2 kb2 =
-            *reinterpret_cast<const int2*>(kb_s + c * 8 + 2 * tig);
-        const int2 kp2 =
-            *reinterpret_cast<const int2*>(kp_s + c * 8 + 2 * tig);
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          const KeyRule kr = key_rule((unsigned)(u ? kb2.y : kb2.x),
-                                      u ? kp2.y : kp2.x);
-          ok[4 * c + u] = pair_allowed(qr0, kr);
-          ok[4 * c + 2 + u] = pair_allowed(qr1, kr);
-        }
-      }
+      fragment_mask(ok, qr0, qr1, kb_s, kb_s + BK, tig);
     }
     float c = scale;
     if (softcap != 0.f) {

@@ -2,9 +2,10 @@
 // for sm_90a (no library headers): 16-byte cp.async copies of bf16 tiles
 // into shared memory in the 128-byte swizzle, the wgmma shared-memory
 // descriptors that name that layout, the warpgroup's fence / commit /
-// wait, the two wgmma shapes the BAM forward issues, and the conversion
-// of an f32 accumulator fragment into bf16 A-operand registers split
-// into a high and a low part.
+// wait, the two wgmma shapes the BAM kernels issue (K1's S and P·V, K2's
+// S, dP and dS·K, K3's S^T, dP^T, P^T·dO and dS^T·Q), the conversion of
+// an f32 accumulator fragment into bf16 A-operand registers split into a
+// high and a low part, and exp2.
 //
 // Tile layout. A [ROWS][HD] bf16 tile (HD 64 or 128, one row per q or
 // key, hd contiguous) is stored as HD / 64 column blocks of 64 elements
@@ -12,14 +13,26 @@
 // row r sits at chunk c ^ (r % 8) of its 128-byte row. That is the
 // 128-byte swizzle, applied by the hardware on address bits [4, 7) xor
 // [7, 10), so every block starts on a 1024-byte boundary. The same
-// bytes serve as a K-major operand (Q and K: the reduction runs over
-// hd) and as an MN-major one (V: the reduction runs over keys, N = hd).
+// bytes serve as a K-major operand (the reduction runs over hd: Q and K
+// in K1's S, Q, dO, K and V in K2's S and dP, K, V, Q and dO in K3's
+// S^T and dP^T) and as an MN-major one (the reduction runs over the
+// tile's rows, N = hd: V in K1's P·V, K in K2's dS·K, dO and Q in K3's
+// P^T·dO and dS^T·Q).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x, flushing results below 2^-126 to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

@@ -20,7 +20,10 @@ JAX interpret path under the same map; fully padded q and k blocks give
 exact zeros, lse = -1e30 and stats (-1e30, 0, 0); a map with another
 tile, grid or window is refused; and the port's analogue of kernellint's
 ``check_block_map_coverage`` over its layouts: the CSR rows cover every
-(64, 32) tile that holds an allowed pair, in both orders.
+(64, 32) tile that holds an allowed pair, in both orders; and the 64-key
+rows the bf16 K3c walks are the ascending union of each pair of k-major
+rows, with per-column flags, for a pruned map and a lone last column
+too.
 """
 import dataclasses
 
@@ -427,6 +430,64 @@ def test_csr_covers_every_allowed_tile(li, scale, window):
     for major in ("q", "k"):
         tiles = tbam.tile_mask(tbm, T, T, "cpu", major)
         assert tiles.shape == (T, T) and not (mask & ~tiles).any()
+
+
+def _check_k64(bm):
+    """The 64-key CSR of ``bm`` (bf16 K3c's rows): row j is the ascending
+    union of k-major rows 2j and 2j + 1, each entry's flags name exactly
+    the columns that list the q block, and a lone last column has a row
+    of its own."""
+    csr = tbam.block_csr(bm, "cpu")
+    active = bm.active_tiles("k").T                    # [nk, nq]
+    ptr, idx = csr.k64_ptr.numpy(), csr.k64_rows.numpy()
+    assert csr.k64_ptr.dtype == torch.int32 and csr.k64_rows.is_contiguous()
+    assert len(ptr) == (bm.nk + 1) // 2 + 1 and ptr[0] == 0
+    for j in range(len(ptr) - 1):
+        ent = idx[ptr[j]:ptr[j + 1]]
+        iq, flags = ent >> 2, ent & 3
+        assert (np.diff(iq) > 0).all(), "a 64-key row is not ascending"
+        cols = active[2 * j:2 * j + 2]
+        assert set(iq.tolist()) == set(np.flatnonzero(cols.any(0)).tolist())
+        for half in range(2):
+            want = (cols[half, iq] if half < len(cols)
+                    else np.zeros(len(iq), bool))
+            assert (((flags >> half) & 1) == want).all()
+
+
+@pytest.mark.parametrize("li", range(len(_COVERAGE_LAYOUTS)))
+@pytest.mark.parametrize("scale", [16, 23])
+def test_k64_csr_is_the_union_of_column_pairs(li, scale):
+    """kernellint's coverage layouts at T = 224 and 322 (7 and 11 k
+    blocks: the last column has no partner)."""
+    segs = [(kind, m, n * scale) for kind, m, n in _COVERAGE_LAYOUTS[li]]
+    T = 14 * scale
+    bits, pos = tbam.build_sample_bits(segs, T)
+    bm = tbam.build_block_map(bits, bits, pos, pos, BLOCK_Q, BLOCK_K)
+    assert bm.nk % 2 == 1
+    _check_k64(bm)
+
+
+@pytest.mark.parametrize("layout", ["ee", "mp"])
+def test_k64_csr_of_a_pruned_map(layout):
+    """A map with one active tile dropped (as chip_smoke.py's pruned
+    map): the pair row keeps the q block while the other column lists it,
+    with only that column's flag, and drops it otherwise."""
+    bits, pos = random_multimodal_bits(4096, layout, seed=0)
+    bm = tbam.build_block_map(bits, bits, pos, pos, BLOCK_Q, BLOCK_K)
+    active = bm.active_tiles()
+    iq = bm.nq // 2
+    ik = int(np.flatnonzero(active[iq])[0])
+    active[iq, ik] = False
+    pruned = tbam.block_map_from_tiles(active, BLOCK_Q, BLOCK_K)
+    _check_k64(pruned)
+    csr = tbam.block_csr(pruned, "cpu")
+    j = ik // 2
+    ent = csr.k64_rows.numpy()[csr.k64_ptr[j]:csr.k64_ptr[j + 1]]
+    other = active[iq, ik ^ 1] if (ik ^ 1) < bm.nk else False
+    hit = ent[(ent >> 2) == iq]
+    assert len(hit) == int(other)
+    if other:
+        assert hit[0] & 3 == 1 << ((ik ^ 1) & 1)
 
 
 def test_csr_is_uploaded_once_per_map_and_device():
