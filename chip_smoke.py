@@ -18,7 +18,8 @@ line is printed only when every phase ran and passed):
    libraries, ``HGMMA`` instructions counted per kernel instantiation
    and printed beside ptxas' registers and spills; a check per library
    fails unless each of its bf16 instantiations (mangled names holding
-   ``__nv_bfloat16``: 8 of K1, 4 of K2, 4 of K3) has HGMMA and no spill.
+   ``__nv_bfloat16``: 8 of K1, 4 of K2, 4 of K3) has HGMMA and no spill,
+   and another unless none of K4's 4 instantiations spills.
 2. Hold each kernel against its plain PyTorch version on the card at its
    main path's shapes, printing max abs error beside its tolerance,
    kernel/plain/library ms and the roofline bound:
@@ -36,7 +37,14 @@ line is printed only when every phase ran and passed):
      window 100), dense and compacted under the batch's map: each within
      ``compare`` of its plain version, K3 bit-identical on a second run,
      the compacted grid torch.equal to the dense one;
-   - K4 (paged decode) on a [P,16,8,128] page pool with 4 rows, one empty;
+   - K4 (paged decode), bf16 and f32, on [P,16,Hkv,hd] page pools: the
+     smoke traffic's rows (text 1500, multimodal 672, text 700, one empty
+     row; 32/8 heads of 128), a long context (rows of 8192, 4096, 1024
+     and 17 tokens), 16 rows of 128-4096 tokens, softcap 50 / window 256,
+     head_dim 64, GQA 1:1 (32/32) and 8:1 (64/8): each within
+     ``compare`` of its plain version, empty rows exactly 0, a second run
+     torch.equal to the first; bf16 times (warm and cold L2, and with one
+     split per row) beside SDPA over the gathered pages and the bound;
    - at the most loaded rank's share of a 4-rank LPT plan of
      ``random_multimodal_bits(4096, "ee", seed=0)`` (block 128) with
      qwen3-1.7b's widths (16 query, 8 KV heads of 128), bf16 and f32: K1
@@ -68,7 +76,8 @@ line is printed only when every phase ran and passed):
    just after: K1 must launch once per layer per request, K4 > 0.
    Then torch.profiler windows over the step that prefills the longest
    prompt (device time, K1's share) and over 3 decode ticks of 4 rows
-   (device busy share, top kernels by device time). One multimodal
+   (device busy share, K4's device time, top kernels by device time).
+   One multimodal
    request is served again, prefilled in a 4-rank plan's layout: its
    pages are owned by the 4 ranks, and its agreement with the plan-less
    run is printed.
@@ -118,6 +127,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import gc
 import json
 import re
@@ -467,29 +477,37 @@ def bwd_cases(smoke: Smoke):
                          f"vlm layout"}
 
 
-def decode_fixture(torch, dtype, page_size=16, Hkv=8, hd=128):
-    """A page pool holding the smoke traffic: rows (text 1500, multimodal
-    32+576+64 with a query attending modality 1, text 700, empty)."""
+SMOKE_ROWS = [[("text", 0, 1500)],
+              [("text", 0, 32), ("mod", 1, 576), ("text", 0, 64)],
+              [("text", 0, 700)]]
+
+
+def decode_fixture(torch, dtype, layouts=SMOKE_ROWS, q_bits=None,
+                   page_size=16, Hkv=8, hd=128):
+    """A page pool holding one request per layout, its query token written
+    into the pool before attention runs, plus an empty row for each
+    ``q_bits`` entry past the layouts. Default: the smoke traffic's rows
+    (text 1500, multimodal 32+576+64 with a query attending modality 1,
+    text 700) and one empty row. The grid is built without a window, as
+    the serving engine builds it when layers' windows differ."""
     from repro_torch.core import bam
     from repro_torch.serving.paged_cache import PageTable, build_decode_grid
-    layouts = [[("text", 0, 1500)],
-               [("text", 0, 32), ("mod", 1, 576), ("text", 0, 64)],
-               [("text", 0, 700)]]
+    if q_bits is None:
+        q_bits = [bam.text_token(), bam.text_token((1,)), bam.text_token(), 0]
     P = 1 + sum(-(-sum(s[2] for s in segs) // page_size) + 1
                 for segs in layouts)
     table = PageTable(P, page_size)
-    q_bits = [bam.text_token(), bam.text_token((1,)), bam.text_token(), 0]
     q_pos = []
     for rid, segs in enumerate(layouts):
         n = sum(s[2] for s in segs)
         bits, pos = bam.build_sample_bits(segs, n)
         table.alloc(rid, n + 1)
-        # the query token is in the pool before attention runs
         table.write(rid, np.arange(n + 1), np.append(bits, q_bits[rid]),
                     np.append(pos, n))
         q_pos.append(n)
-    q_pos.append(0)
-    grid = build_decode_grid(table, [0, 1, 2, None], q_bits, q_pos)
+    q_pos += [0] * (len(q_bits) - len(layouts))
+    rids = list(range(len(layouts))) + [None] * (len(q_bits) - len(layouts))
+    grid = build_decode_grid(table, rids, q_bits, q_pos)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     shape = (P, page_size, Hkv, hd)
     k = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -499,68 +517,195 @@ def decode_fixture(torch, dtype, page_size=16, Hkv=8, hd=128):
             torch.tensor(q_pos, dtype=torch.int32, device="cuda")[:, None])
 
 
+def cuda_graph_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
+    """Mean device time of fn() replayed from a CUDA graph of ``iters``
+    calls, so that the host's cost per call stays out of it (a call with
+    a few µs of device work costs the host more than that)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
+def cuda_ms_cold(torch, fn, iters: int = 20) -> float:
+    """Mean device time of fn() with the L2 cache flushed before each call
+    (a 128 MB read, which leaves no dirty line behind), as a decode tick
+    finds each layer's pages."""
+    flush = torch.zeros(1 << 27, dtype=torch.uint8, device="cuda")
+    fn()
+    evs = [(torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    for start, end in evs:
+        flush.max()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in evs) / iters
+
+
+def k4_build_check(smoke: Smoke, _build) -> None:
+    """ptxas' registers and spills for every K4 instantiation (f32 and
+    bf16 at hd 64 and 128): none may spill."""
+    ptxas = {fn: v for fn, v in ptxas_by_function(
+        _build.ptxas_report("paged_decode")).items()
+        if "paged_decode_kernel" in fn}
+    for fn, (regs, st, ld) in sorted(ptxas.items()):
+        dtype = "bf16" if "__nv_bfloat16" in fn else "f32"
+        hd = re.search(r"Li(\d+)E", fn)
+        print(f"  paged_decode_kernel<{dtype}, hd "
+              f"{hd.group(1) if hd else '?'}>: {regs} registers, spill "
+              f"stores {st} B, loads {ld} B", flush=True)
+    smoke.check(len(ptxas) == 4 and all(st == 0 and ld == 0 for _, st, ld
+                                        in ptxas.values()),
+                f"K4 build: {len(ptxas)} of 4 instantiations, none spills")
+
+
 def k4_cases(smoke: Smoke):
+    """K4 against its plain version, bf16 and f32, in every case: the
+    smoke traffic's rows (with an empty row); a long context (rows of
+    8192, 4096, 1024 and 17 tokens); a batch of 16 rows of 128-4096
+    tokens; softcap 50 / window 256; head_dim 64; GQA 1:1 (32/32 heads)
+    and 8:1 (64/8). Empty rows must be exactly 0, a second run
+    torch.equal to the first, and the steps' ticket counters 0 again. bf16 cases print kernel, SDPA over the
+    gathered pages and bound ms with GB/s: kernel and SDPA replayed from
+    CUDA graphs (device time; also the kernel called back to back from
+    the host, and with a cold L2), and the kernel with one split per row
+    (no split over the SMs)."""
     torch = smoke.torch
     import torch.nn.functional as F
     from repro_torch.core import bam
     from repro_torch.kernels.paged_decode import (
-        decode_steps, paged_decode_attention, paged_decode_torch)
+        decode_steps, paged_decode_attention, paged_decode_torch, split_rows)
 
-    H, hd = 32, 128
-    for dt in ("bfloat16", "float32"):
-        dtype = getattr(torch, dt)
-        table, grid, kp, vp, qb, qp = decode_fixture(torch, dtype)
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-        q = torch.randn((4, H, hd), generator=gen, device="cuda").to(dtype)
-        kvb = torch.from_numpy(table.bits).cuda()
-        kvp = torch.from_numpy(table.pos).cuda()
-        steps = decode_steps(grid.arrays(), 4, "cuda")
-        args = (q, kp, vp, qb, qp, kvb, kvp, steps)
-        out = paged_decode_attention(*args)
-        torch.cuda.synchronize()
-        out_p = paged_decode_torch(*args)
-        err, ratio = compare(out, out_p, dt)
-        name = f"K4 B=4 (one empty) pool {tuple(kp.shape)} {dt}"
-        smoke.check(ratio <= 1.0 and bool((out[3] == 0).all()),
-                    f"{name}: max_abs_err {err:.3e} (tol {TOL_TEXT[dt]}; "
-                    f"worst |d|/tol {ratio:.3f}), empty row exactly 0: "
-                    f"{bool((out[3] == 0).all())}")
-        if dt != "bfloat16":
-            continue
-        ms = cuda_ms(torch, lambda: paged_decode_attention(*args), iters=50)
-        plain_ms = cuda_ms(torch, lambda: paged_decode_torch(*args), iters=5)
-        # yardstick: SDPA over the rows' pages gathered dense, bool mask
-        mp = max(len(table.pages_of(r)) for r in range(3))
-        pt = torch.from_numpy(np.stack(
-            [table.page_table_row(r, mp) for r in range(3)]
-            + [np.zeros(mp, np.int32)])).cuda().long()
-        kd = kp[pt].reshape(4, -1, 8, hd).transpose(1, 2)
-        vd = vp[pt].reshape(4, -1, 8, hd).transpose(1, 2)
-        mask = bam.allowed_mask(qb, kvb[pt].reshape(4, -1), qp,
-                                kvp[pt].reshape(4, -1))[:, None]
-        mask[3] = True                   # SDPA has no empty-row convention
-        qd = q[:, :, None]
-        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask, enable_gqa=True), iters=50)
-        n_pages = int(steps.pages.numel())
-        page_bytes = 16 * 8 * hd * kp.element_size()
-        keys = float(mask[:3].sum())
-        nbytes = (2 * n_pages * page_bytes + 2 * q.numel() * q.element_size()
-                  + n_pages * 16 * 8 + steps.row_ptr.numel() * 4)
-        b_ms, b_by = bound(4.0 * hd * H * keys, nbytes, dt)
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, SDPA "
-              f"on gathered pages {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
-              f"({b_by}); {n_pages} active pages, "
-              f"{nbytes / ms / 1e6:.1f} GB/s", flush=True)
-        smoke.kernels["K4"] = {
-            "name": "paged_decode (K4, paged BAM flash decode)",
-            "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/paged_decode.cu",
-            "replaces": "src/repro/kernels/paged_decode.py:138",
-            "max_abs_err": err, "tolerance": TOL_TEXT[dt],
-            "worst_err_over_tol": ratio, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-            "shape": f"q[4,{H},{hd}] pages{tuple(kp.shape)} {dt}"}
+    text = bam.text_token()
+    long_rows = [[("text", 0, n)] for n in (8192, 4096, 1024, 17)]
+    batch_rows = [[("text", 0, 128 + (4096 - 128) * i // 15)]
+                  for i in range(16)]
+    # (name, layouts, q bits or None, H, Hkv, hd, softcap, window)
+    cases = [("smoke rows", SMOKE_ROWS, None, 32, 8, 128, 0.0, 0),
+             ("long context", long_rows, [text] * 4, 32, 8, 128, 0.0, 0),
+             ("16 rows", batch_rows, [text] * 16, 32, 8, 128, 0.0, 0),
+             ("softcap 50 window 256", SMOKE_ROWS, None, 32, 8, 128, 50.0,
+              256),
+             ("hd 64", SMOKE_ROWS, None, 32, 8, 64, 0.0, 0),
+             ("GQA 1:1", SMOKE_ROWS, None, 32, 32, 128, 0.0, 0),
+             ("GQA 8:1", SMOKE_ROWS, None, 64, 8, 128, 0.0, 0)]
+    for case, layouts, qbits, H, Hkv, hd, softcap, window in cases:
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            table, grid, kp, vp, qb, qp = decode_fixture(
+                torch, dtype, layouts, qbits, Hkv=Hkv, hd=hd)
+            B = qb.shape[0]
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+            q = torch.randn((B, H, hd), generator=gen,
+                            device="cuda").to(dtype)
+            kvb = torch.from_numpy(table.bits).cuda()
+            kvp = torch.from_numpy(table.pos).cuda()
+            steps = decode_steps(grid.arrays(), B, "cuda", kv_heads=Hkv,
+                                 page_size=kp.shape[1])
+            args = (q, kp, vp, qb, qp, kvb, kvp, steps)
+            kw = dict(softcap=softcap, window=window)
+            out = paged_decode_attention(*args, **kw)
+            again = paged_decode_attention(*args, **kw)
+            torch.cuda.synchronize()
+            out_p = paged_decode_torch(*args, **kw)
+            err, ratio = compare(out, out_p, dt)
+            empty = steps.empty.long()
+            zeros = bool((out[empty] == 0).all())
+            same = torch.equal(out, again)
+            reset = not bool(steps.tickets.any())
+            name = (f"K4 {case}: B={B} H={H} Hkv={Hkv} hd={hd} pool "
+                    f"{tuple(kp.shape)} {dt}, {steps.splits.shape[0]} "
+                    f"splits")
+            smoke.check(ratio <= 1.0 and zeros and same and reset,
+                        f"{name}: max_abs_err {err:.3e} (tol {TOL_TEXT[dt]}; "
+                        f"worst |d|/tol {ratio:.3f}), {empty.numel()} empty "
+                        f"rows exactly 0: {zeros}, second run torch.equal: "
+                        f"{same}, ticket counters back to 0: {reset}")
+            if dt != "bfloat16":
+                continue
+            ms = cuda_graph_ms(
+                torch, lambda: paged_decode_attention(*args, **kw))
+            call_ms = cuda_ms(
+                torch, lambda: paged_decode_attention(*args, **kw), iters=50)
+            cold_ms = cuda_ms_cold(
+                torch, lambda: paged_decode_attention(*args, **kw))
+            row_ptr = steps.row_ptr.cpu().numpy().astype(np.int64)
+            split_ptr, splits = split_rows(
+                row_ptr, max(1, int(np.diff(row_ptr).max())))
+            one = dataclasses.replace(
+                steps, split_ptr=torch.from_numpy(split_ptr).cuda(),
+                splits=torch.from_numpy(splits).cuda())
+            one_ms = cuda_graph_ms(torch, lambda: paged_decode_attention(
+                q, kp, vp, qb, qp, kvb, kvp, one, **kw))
+            # yardstick: SDPA over the rows' pages gathered dense, bool mask
+            live = range(len(layouts))
+            mp = max(len(table.pages_of(r)) for r in live)
+            pt = torch.from_numpy(np.stack(
+                [table.page_table_row(r, mp) for r in live]
+                + [np.zeros(mp, np.int32)] * (B - len(layouts)))).cuda().long()
+            kd = kp[pt].reshape(B, -1, Hkv, hd).transpose(1, 2)
+            vd = vp[pt].reshape(B, -1, Hkv, hd).transpose(1, 2)
+            mask = bam.allowed_mask(qb, kvb[pt].reshape(B, -1), qp,
+                                    kvp[pt].reshape(B, -1), window)[:, None]
+            keys = float(mask.sum())
+            mask[empty] = True          # SDPA has no empty-row convention
+            qd = q[:, :, None]
+            lib_ms = cuda_graph_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qd, kd, vd, attn_mask=mask, enable_gqa=True))
+            n_pages = int(steps.pages.numel())
+            ps = kp.shape[1]
+            page_bytes = ps * Hkv * hd * kp.element_size()
+            steps_bytes = sum(t.numel() * 4 for t in (
+                steps.pages, steps.split_ptr, steps.splits, steps.empty,
+                steps.tickets))
+            nbytes = (2 * n_pages * page_bytes + 2 * q.numel()
+                      * q.element_size() + n_pages * ps * 8 + steps_bytes)
+            b_ms, b_by = bound(4.0 * hd * H * keys, nbytes, dt)
+            print(f"{name}: kernel {ms:.4f} ms ({nbytes / ms / 1e6:.1f} "
+                  f"GB/s; {call_ms:.4f} ms a call back to back from the "
+                  f"host), cold L2 {cold_ms:.4f} ms "
+                  f"({nbytes / cold_ms / 1e6:.1f} GB/s), one split per row "
+                  f"{one_ms:.4f} ms, SDPA on gathered pages {lib_ms:.4f} ms, "
+                  f"bound {b_ms:.5f} ms ({b_by}); {n_pages} active pages, "
+                  f"{nbytes / 1e6:.2f} MB", flush=True)
+            row = dict(ms=ms, host_paced_ms=call_ms, cold_l2_ms=cold_ms,
+                       one_split_per_row_ms=one_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by)
+            if case == "long context":
+                smoke.kernels["K4"]["long_context"] = dict(
+                    row, shape=f"q[{B},{H},{hd}] pages{tuple(kp.shape)} "
+                    f"rows 8192/4096/1024/17 {dt}")
+            if case != "smoke rows":
+                continue
+            plain_ms = cuda_ms(torch, lambda: paged_decode_torch(*args, **kw),
+                               iters=5)
+            smoke.kernels["K4"] = dict(
+                name="paged_decode (K4, paged BAM flash decode)",
+                route="cuda",
+                source="src/repro_torch/kernels/csrc/paged_decode.cu",
+                replaces="src/repro/kernels/paged_decode.py:138",
+                max_abs_err=err, tolerance=TOL_TEXT[dt],
+                worst_err_over_tol=ratio, plain_ms=plain_ms,
+                shape=f"q[{B},{H},{hd}] pages{tuple(kp.shape)} {dt}", **row)
 
 
 # ---------------------------------------------------------------------------
@@ -1395,9 +1540,13 @@ def decode_profile(smoke: Smoke, model, cfg, reqs):
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    # every kernel of K4's library (csrc/paged_decode.cu)
+    k4 = [e for e in kernels if "paged_decode" in e.key]
+    k4_us = sum(e.self_device_time_total for e in k4)
     print(f"decode profile, 3 ticks x 4 rows: wall {wall_us / 3e3:.2f} "
           f"ms/tick, device busy {busy_us / 3e3:.2f} ms/tick "
-          f"({100 * busy_us / wall_us:.1f}% busy); top kernels: "
+          f"({100 * busy_us / wall_us:.1f}% busy); K4 {k4_us / 3e3:.3f} "
+          f"ms/tick x{sum(e.count for e in k4) // 3}; top kernels: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 3e3:.3f} "
                       f"ms/tick x{e.count // 3}" for e in top), flush=True)
 
@@ -1945,6 +2094,7 @@ def main() -> int:
 
     smoke = Smoke(torch)
     sass_check(smoke, _build)
+    k4_build_check(smoke, _build)
     if "kernels" in phases:
         k1_cases(smoke)
         bwd_cases(smoke)

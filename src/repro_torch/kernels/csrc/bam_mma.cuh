@@ -63,6 +63,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// waits until at most N of this thread's committed cp.async groups are
+// still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // orders this thread's generic-proxy writes to shared memory (cp.async
 // included) before later reads of the same bytes by wgmma (async proxy)
 __device__ __forceinline__ void fence_proxy_async() {

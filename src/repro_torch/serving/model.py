@@ -123,7 +123,9 @@ def paged_decode_step(model, cfg: ModelConfig, cache, batch, *,
     x = T.embed_tokens(model, cfg, batch)               # [B, 1, d]
     cache["bits"][page, slot] = q_bits[:, 0]
     cache["pos"][page, slot] = pos[:, 0]
-    steps = decode_steps(batch["steps"], B, pos.device) \
+    steps = decode_steps(batch["steps"], B, pos.device,
+                         kv_heads=cache["k"].shape[3],
+                         page_size=cache["k"].shape[2]) \
         if attn == "kernel" else None
 
     for i, lp in enumerate(model.layers):

@@ -202,12 +202,13 @@ def test_decode_steps_csr():
     steps = (np.array([0, 0, 1, 2, 2, 0, 0]), np.array([3, 4, 0, 5, 6, 0, 0]),
              np.array([1, 0, 1, 1, 0, 0, 0]), np.array([0, 1, 1, 0, 1, 0, 0]),
              np.array([1, 1, 0, 1, 1, 0, 0]))
-    s = decode_steps(steps, 3, "cpu")
+    s = decode_steps(steps, 3, "cpu", kv_heads=2, page_size=8)
     assert s.row_ptr.tolist() == [0, 2, 2, 4]
     assert s.pages.tolist() == [3, 4, 5, 6]
     with pytest.raises(ValueError, match="grouped by row"):
         decode_steps((np.array([1, 0]), np.array([1, 2]), np.ones(2),
-                      np.ones(2), np.ones(2)), 2, "cpu")
+                      np.ones(2), np.ones(2)), 2, "cpu", kv_heads=2,
+                     page_size=8)
 
 
 def test_plain_k1_matches_dense_reference_bf16():
@@ -223,7 +224,8 @@ def test_plain_k1_matches_dense_reference_bf16():
     np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
                                atol=2 ** -6)
     steps = decode_steps((np.zeros(1), np.zeros(1), np.ones(1), np.ones(1),
-                          np.zeros(1)), 1, "cpu")
+                          np.zeros(1)), 1, "cpu", kv_heads=k.shape[2],
+                         page_size=8)
     empty = paged_decode_torch(q[:1, 0], k[0, :8][None], v[0, :8][None],
                                bits[:1, :1], pos[:1, :1], bits[:1, :8],
                                pos[:1, :8], steps)
