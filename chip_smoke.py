@@ -6,6 +6,7 @@ NVIDIA GPU. Run from the root of the repository:
     python3 chip_smoke.py --phases kernels      # phases 1-2 only
     python3 chip_smoke.py --phases compact      # phases 1, 2b only
     python3 chip_smoke.py --phases kernels,cp   # phases 1-2, 7-8
+    python3 chip_smoke.py --phases pp           # phases 1, 5b
 
 Phases (any failure exits non-zero and prints no result line; the result
 line is printed only when every phase ran and passed):
@@ -104,6 +105,27 @@ line is printed only when every phase ran and passed):
    full width; the kernel path and the plain path (attn_impl="xla"), from
    the same weights and batches, give the same loss (rel 1e-5) and
    grad_norm (rel 1e-4) at each of 3 steps.
+5b. ``pp``: frozen-aware pipeline parallelism replayed on the card. The
+   full-width vlm of phase 5 (bf16, remat on, attn_impl="bam_kernel",
+   weights from a seeded generator) is planned by ``parallelize`` for 4
+   pipeline devices (4 microbatches of 1, text_len 1024), the plan is
+   printed (``describe``) and applied (``mode="replay"``), and one batch
+   of 4 is replayed through ``execute_schedule`` over
+   ``build_mllm_stages``. Launch counts are zeroed just before and read
+   just after: K1, K2 and K3 must launch as often as
+   ``pp_expected_launches`` derives from the plan and ``cfg.remat``. The
+   measured peak activations per simulated device must equal the
+   simulated ones; loss/M and the projector gradient/M must agree with
+   ``make_mllm_train_step``'s on the same batch (bf16 tolerances
+   ``PP_BF16_*``); frozen weights stay bit-identical with no ``.grad``.
+   Replay and single-step ms, a profiled replay's busy share and K1-K3
+   device time, and peak memory are printed beside the card's line.
+   Then f32 parity at 2 + 2 layers (full width) for the searched plan
+   and an ft1 plan (trainable LLM) pinned to ZB-H1, whose W items run as
+   separate autograd passes (``PP_F32_*``, the JAX replay test's
+   tolerances); and the launcher, ``repro_torch.launch.train.main`` with
+   ``--mllm vlm --steps 2 --seq 1024 --batch 4 --microbatches 4
+   --plan-devices 4`` at full width: finite losses.
 7. Context parallelism, on a NCCL process group of world size 1 (NCCL
    refuses two ranks on one card) with the 4-rank LPT plan applied to
    the sequence: 3 allgather and 3 ring steps of ``make_cp_train_step``
@@ -142,7 +164,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("kernels", "compact", "serving", "train", "cp")
+PHASES = ("kernels", "compact", "serving", "train", "pp", "cp")
 KERNEL_KEYS = ("K1", "K1s", "K1c", "K2", "K2c", "K3", "K3c", "K4")
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1609,11 +1631,12 @@ def parity_phase(smoke: Smoke, model, cfg, reqs):
 TEXT_LEN = 1024
 
 
-def mllm_dataset(mllm, seed: int):
+def mllm_dataset(mllm, seed: int, batch_size: int = 1):
     from repro_torch.data.synthetic import MultimodalDataset
     encs = mllm.encoders
     return MultimodalDataset(
-        vocab_size=mllm.llm_cfg.vocab_size, text_len=TEXT_LEN, batch_size=1,
+        vocab_size=mllm.llm_cfg.vocab_size, text_len=TEXT_LEN,
+        batch_size=batch_size,
         encoder_dims={n: e.cfg.d_model for n, e in encs.items()},
         encoder_tokens={n: e.num_tokens for n, e in encs.items()},
         modality_ids={n: e.modality_id for n, e in encs.items()},
@@ -1786,8 +1809,300 @@ def train_parity_phase(smoke: Smoke):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5b: frozen-aware pipeline parallelism, replayed on one card
+# ---------------------------------------------------------------------------
+
+PP_MICROBATCHES, PP_BATCH, PP_DEVICES = 4, 4, 4
+#: bf16 replay vs single step: the loss's relative error, and the
+#: projector gradient's relative Frobenius error (the replay adds the 4
+#: microbatches' bf16 partial gradients; eps(bf16) = 2^-8)
+PP_BF16_LOSS_RTOL, PP_BF16_GRAD_RTOL = 2e-3, 3e-2
+#: f32 parity, the JAX package's own replay-test tolerances
+PP_F32_LOSS_RTOL, PP_F32_GRAD_RTOL, PP_F32_GRAD_ATOL = 2e-5, 2e-4, 1e-6
+
+
+def pp_plan(mllm, **kw):
+    from repro_torch.parallel import ClusterSpec, WorkloadShape, parallelize
+    return parallelize(mllm, ClusterSpec(num_devices=PP_DEVICES),
+                       WorkloadShape(text_len=TEXT_LEN,
+                                     num_microbatches=PP_MICROBATCHES,
+                                     microbatch_size=1, block_size=128),
+                       **kw)
+
+
+def pp_replay(mllm, ex, params, batch):
+    """(bundle, execute_schedule's result, {name: grad}) for one batch
+    replayed through the plan's timeline."""
+    from repro_torch.core.modality_parallel import execute_schedule
+    from repro_torch.models.stages import build_mllm_stages
+    bundle = build_mllm_stages(mllm, ex, text_len=TEXT_LEN)
+    res = execute_schedule(
+        bundle.stage_fns, bundle.partition(params),
+        bundle.encode_microbatches(batch, PP_MICROBATCHES),
+        ex["sim_graph"], ex["schedule"],
+        microbatch_loss=bundle.microbatch_loss,
+        trainable=list(bundle.trainable))
+    grads = {}
+    for g in res["param_grads"]:
+        grads.update(g)
+    return bundle, res, grads
+
+
+def pp_single(mllm, params, batch):
+    """make_mllm_train_step's loss and gradients on the whole batch."""
+    from repro_torch.training.steps import _grads, make_mllm_train_step
+    _, loss_fn = make_mllm_train_step(mllm)
+    loss, _ = loss_fn(params, batch)
+    return loss.detach(), _grads(loss, dict(params.named_parameters()))
+
+
+def pp_phase(smoke: Smoke):
+    """The full-width vlm's pipeline plan, replayed on the card and held
+    against the single-process step on the same weights and batch."""
+    torch = smoke.torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.mllm import build_paper_mllm
+
+    mllm = build_paper_mllm("vlm", llm_size="M", vision_size="S")
+    mllm.llm_cfg = mllm.llm_cfg.replace(attn_impl="bam_kernel")
+    remat = mllm.llm_cfg.remat
+    plan = pp_plan(mllm)
+    print(plan.describe(), flush=True)
+    ex = plan.apply(mllm, mode="replay")
+    sim = ex["schedule"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    params = mllm.init(device="cuda", generator=gen)
+    named = dict(params.named_parameters())
+    fmask = mllm.frozen_mask(params)
+    frozen = {n: p.detach().clone() for n, p in named.items() if fmask[n]}
+    batch = next(iter(mllm_dataset(mllm, SEED + 8, PP_BATCH)))
+    torch.cuda.synchronize()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    bundle, res, grads = pp_replay(mllm, ex, params, batch)
+    loss_r = float(res["loss"]) / PP_MICROBATCHES
+    ms_first = (time.perf_counter() - t0) * 1e3
+    counts = kernel_counts()
+    smoke.launches["pp"] = {k: counts[k] for k in ("K1", "K2", "K3", "K4")}
+    want = pp_expected_launches(bundle, ex["sim_graph"], sim, remat)
+    llm_stages = [(sp.lo, sp.hi) for sp in bundle.specs if sp.kind == "llm"]
+    print(f"pp replay: {len(bundle.specs)} stages ({', '.join(f'{sp.module}[{sp.lo}:{sp.hi}]' for sp in bundle.specs)}) "
+          f"on {sim['num_devices']} simulated devices, "
+          f"{len(sim['items'])} items, {PP_MICROBATCHES} microbatches of "
+          f"{PP_BATCH // PP_MICROBATCHES}; launches K1 {counts['K1']}, K2 "
+          f"{counts['K2']}, K3 {counts['K3']}, K4 {counts['K4']}; derived: "
+          f"per LLM layer and microbatch K1 once at F, and per backward "
+          f"pass (B through the frozen LLM for the projector's input "
+          f"gradient; a W pass only for a trainable LLM) K2 and K3 once "
+          f"and K1 once more under remat={remat}: {want} over LLM stages "
+          f"{llm_stages}", flush=True)
+    smoke.check(all(counts[k] == want[k] for k in want)
+                and counts["K4"] == 0 and counts["K1s"] == 0,
+                f"pp replay launched K1 {counts['K1']}, K2 {counts['K2']}, "
+                f"K3 {counts['K3']} times = derived {want}; K4, K1 stats 0")
+    smoke.check(res["peak_activations_per_device"]
+                == sim["peak_activations_per_device"],
+                f"measured peak activations per simulated device "
+                f"{res['peak_activations_per_device']} == simulated "
+                f"{sim['peak_activations_per_device']}")
+
+    t0 = time.perf_counter()
+    loss_s, ref = pp_single(mllm, params, batch)
+    loss_s = float(loss_s)
+    ms_single_first = (time.perf_counter() - t0) * 1e3
+    rl = abs(loss_r - loss_s) / abs(loss_s)
+    smoke.check(np.isfinite(loss_r) and rl <= PP_BF16_LOSS_RTOL,
+                f"bf16 full width: replay loss/M {loss_r:.6f} vs single step "
+                f"{loss_s:.6f} (rel {rl:.2e}, tol {PP_BF16_LOSS_RTOL})")
+    trained = sorted(n for n, g in ref.items() if g is not None)
+    smoke.check(sorted(grads) == trained,
+                f"the replay's gradients are the single step's trainable "
+                f"set ({len(trained)}: {', '.join(trained)})")
+    for name in trained:
+        got = grads[name].float() / PP_MICROBATCHES
+        want_g = ref[name].float()
+        rel = float((got - want_g).norm() / want_g.norm())
+        smoke.check(rel <= PP_BF16_GRAD_RTOL,
+                    f"bf16 full width: {name} gradient/M vs single step, "
+                    f"relative Frobenius error {rel:.2e} (tol "
+                    f"{PP_BF16_GRAD_RTOL}); max |d| "
+                    f"{float((got - want_g).abs().max()):.3e}")
+    del grads, ref
+    same = sum(torch.equal(named[n], c) for n, c in frozen.items())
+    no_grad = all(named[n].grad is None for n in frozen)
+    smoke.check(same == len(frozen) and no_grad,
+                f"{same}/{len(frozen)} frozen parameters bit-identical, "
+                f"none with a .grad ({no_grad})")
+    del frozen
+
+    # times (host clock ending in a host read of the loss) and peak
+    # memory of second runs, the frozen copies freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, res2, _ = pp_replay(mllm, ex, params, batch)
+    float(res2["loss"])
+    ms_replay = (time.perf_counter() - t0) * 1e3
+    peak_replay = torch.cuda.max_memory_allocated() / 2 ** 30
+    del res2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss2, _ = pp_single(mllm, params, batch)
+    float(loss2)
+    ms_single = (time.perf_counter() - t0) * 1e3
+    peak_single = torch.cuda.max_memory_allocated() / 2 ** 30
+    del loss2
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, res3, _ = pp_replay(mllm, ex, params, batch)
+        float(res3["loss"])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    del res3
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in evs)
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:6]
+    print(f"pp [{smoke.smi}]: replay {ms_replay:.1f} ms (first "
+          f"{ms_first:.1f}), single step {ms_single:.1f} ms (first "
+          f"{ms_single_first:.1f}) on the same batch of {PP_BATCH}; peak "
+          f"memory replay {peak_replay:.2f} GiB (every simulated device's "
+          f"in-flight activations on this card, simulated peaks "
+          f"{sim['peak_activations_per_device']}), single step "
+          f"{peak_single:.2f} GiB, of which {weights_gib:.2f} GiB held "
+          f"before either (weights, batch)", flush=True)
+    print(f"pp [{smoke.smi}]: profiled replay wall {wall_us / 1e3:.1f} ms, "
+          f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}"
+          f"% busy); top kernels: " + "; ".join(
+              f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
+              f"x{e.count}" for e in top) + bam_shares(evs), flush=True)
+    del params, named, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pp_parity_phase(smoke: Smoke):
+    """f32, 2 LLM and 2 encoder layers at full width, remat on: the replay
+    of the searched plan, and of an ft1 plan (trainable LLM) pinned to
+    ZB-H1 whose W items run on the card, against the single step."""
+    torch = smoke.torch
+    from repro_torch.models.mllm import build_paper_mllm
+
+    def build(train_llm):
+        m = build_paper_mllm("vlm", llm_size="M", vision_size="S")
+        m.llm_cfg = m.llm_cfg.replace(num_layers=2, dtype="float32",
+                                      attn_impl="bam_kernel")
+        enc = m.encoders["vision"]
+        enc.cfg = enc.cfg.replace(num_layers=2, dtype="float32")
+        if train_llm:
+            m.freeze("llm", module=False)
+        return m
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    params = build(False).init(device="cuda", generator=gen)
+    batch = next(iter(mllm_dataset(build(False), SEED + 9, PP_BATCH)))
+    for label, train_llm, kw in (
+            ("searched plan", False, {}),
+            ("ft1 ZB-H1 plan", True, {"schedules": ("zb-h1",)})):
+        mllm = build(train_llm)
+        mllm.apply_freeze(params)
+        plan = pp_plan(mllm, **kw)
+        ex = plan.apply(mllm, mode="replay")
+        n_w = sum(1 for it in ex["schedule"]["items"] if it[3] == "W")
+        zero_counts()
+        _, res, grads = pp_replay(mllm, ex, params, batch)
+        counts = kernel_counts()
+        loss_s, ref = pp_single(mllm, params, batch)
+        loss_r, loss_s = float(res["loss"]) / PP_MICROBATCHES, float(loss_s)
+        rl = abs(loss_r - loss_s) / abs(loss_s)
+        worst, worst_name = 0.0, ""
+        for name, g in ref.items():
+            if g is None:
+                continue
+            d = (grads[name] / PP_MICROBATCHES - g).abs()
+            ratio = float((d / (PP_F32_GRAD_ATOL
+                                + PP_F32_GRAD_RTOL * g.abs())).max())
+            if ratio > worst:
+                worst, worst_name = ratio, name
+        n_grads = sum(g is not None for g in ref.values())
+        smoke.check(
+            rl <= PP_F32_LOSS_RTOL and worst <= 1.0
+            and len(grads) == n_grads,
+            f"f32 2+2 layers full width, {label} ({plan.schedule.name}, "
+            f"v={plan.schedule.virtual_chunks}, {n_w} W items; K1 "
+            f"{counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']}): replay "
+            f"loss/M {loss_r:.7f} vs single step {loss_s:.7f} (rel "
+            f"{rl:.2e}, tol {PP_F32_LOSS_RTOL}); {len(grads)} gradients, "
+            f"worst |d| / (atol + rtol |ref|) {worst:.3f} at {worst_name} "
+            f"(rtol {PP_F32_GRAD_RTOL}, atol {PP_F32_GRAD_ATOL})")
+        if train_llm:
+            smoke.check(n_w > 0 and counts["K2"] > 0,
+                        f"the ft1 plan's {n_w} W items ran on the card")
+        del res, grads, ref
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def launch_phase(smoke: Smoke):
+    """The launcher at full width: plan search, then 2 steps."""
+    torch = smoke.torch
+    from repro_torch.launch import train as launch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = launch.main(["--mllm", "vlm", "--steps", "2", "--seq",
+                       str(TEXT_LEN), "--batch", str(PP_BATCH),
+                       "--microbatches", str(PP_MICROBATCHES),
+                       "--plan-devices", str(PP_DEVICES), "--log-every",
+                       "1"])
+    took = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    smoke.check(len(res["losses"]) == 2
+                and all(np.isfinite(x) for x in res["losses"]),
+                f"launcher [{smoke.smi}]: --mllm vlm at full width, "
+                f"{res['params'] / 1e9:.2f} B parameters, losses "
+                f"{res['losses']} finite; {took:.1f} s including init and "
+                f"plan, peak memory {peak:.2f} GiB")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phases 7 and 8: the context-parallel train path
 # ---------------------------------------------------------------------------
+
+def pp_expected_launches(bundle, graph, sim, remat: bool) -> dict:
+    """K1, K2 and K3 launches that ``execute_schedule`` makes replaying
+    ``sim`` through ``bundle``'s LLM stages, where every layer's
+    attention runs through BamAttention. Per layer and microbatch: one
+    K1 at F; a backward pass at B when B returns an input gradient
+    (bwd_b > 0 and a predecessor) or glues the weight gradients (a
+    trainable stage with no W item), and another at W for a trainable
+    stage whose W item is separate. Each backward pass runs K2 and K3
+    once and, under remat, K1 once more (non-reentrant checkpoint
+    recomputes the block in every backward call)."""
+    has_w = any(it[3] == "W" for it in sim["items"])
+    M = 1 + max(it[5] for it in sim["items"])
+    preds = graph.preds
+    k1 = k23 = 0
+    for s, sp in enumerate(bundle.specs):
+        if sp.kind != "llm":
+            continue
+        st = graph.stages[s]
+        defer = sp.trainable and has_w and st.bwd_w > 0
+        b_pass = (st.bwd_b > 0 and bool(preds[s])) or \
+            (sp.trainable and not defer)
+        passes = int(b_pass) + int(defer)
+        layers = sp.hi - sp.lo
+        k1 += M * layers * (1 + (passes if remat else 0))
+        k23 += M * layers * passes
+    return {"K1": k1, "K2": k23, "K3": k23}
+
 
 def free_port() -> int:
     import socket
@@ -2093,6 +2408,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     smoke = Smoke(torch)
+    smoke.smi = smi
     sass_check(smoke, _build)
     k4_build_check(smoke, _build)
     if "kernels" in phases:
@@ -2122,6 +2438,10 @@ def main() -> int:
         train_parity_phase(smoke)
         gc.collect()
         torch.cuda.empty_cache()
+    if "pp" in phases:
+        pp_phase(smoke)
+        pp_parity_phase(smoke)
+        launch_phase(smoke)
     if "cp" in phases:
         cp_phases(smoke)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "
@@ -2136,9 +2456,9 @@ def main() -> int:
               f"for a partial run")
         return 0
     # launches: each kernel's count on each path it is on (serving: K1,
-    # K4; train: K1, K2, K3; cp: K1 stats, K2, K3; compact: K1c, K2c,
-    # K3c); "launches" is the train path's for K1-K3, the CP path's for
-    # K1 stats, the compact path's for K1c-K3c
+    # K4; train and pp: K1, K2, K3; cp: K1 stats, K2, K3; compact: K1c,
+    # K2c, K3c); "launches" is the train path's for K1-K3, the CP path's
+    # for K1 stats, the compact path's for K1c-K3c
     paths = smoke.launches
     for key in KERNEL_KEYS:
         by_path = {path: counts[key] for path, counts in paths.items()

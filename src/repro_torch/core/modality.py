@@ -12,8 +12,14 @@ tree: ``encoders.<name>.module`` (the encoder), ``encoders.<name>
 .projector.w1`` (and ``w2``), ``llm``. Frozen parts hold
 ``requires_grad=False`` (``apply_freeze``), and a frozen encoder runs
 under ``torch.no_grad()``: the analogues of the JAX package's
-``stop_gradient``, so the backward never enters them. The execution
-graph, ``ParallelSpec`` and ``profiles()`` come with the pipeline slice.
+``stop_gradient``, so the backward never enters them.
+
+The execution graph is a plain adjacency dict built only from true data
+flow (each encoder feeds the LLM; no edge between encoders, paper C1),
+sorted topologically without networkx. ``profiles()`` gives the
+frozen-aware cost profiles the partitioner (``core.pipeline``) consumes,
+and ``MultimodalParallelSpec.apply`` turns a given stage allocation into
+the executor contract (``parallel.plan.build_executor_plan``).
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import bam
+from repro_torch.core import pipeline as pp
 from repro_torch.models import layers as Lyr
 from repro_torch.models import mllm as M
 from repro_torch.models import transformer as T
@@ -109,6 +116,38 @@ class ModalityModule:
             out = self.postprocess_projector_callback(inputs, out)
         return out
 
+    # -- cost profile for the partitioner -----------------------------------
+    def profile(self, seq_tokens: int, batch: int = 1,
+                recompute: bool = False) -> pp.ModuleProfile:
+        return pp.profile_from_config(
+            self.cfg, seq_tokens or self.num_tokens, batch=batch,
+            frozen=self.frozen_module, recompute=recompute, name=self.name)
+
+
+def topological_generations(adj: Dict[str, List[str]]) -> List[List[str]]:
+    """Kahn's algorithm by levels over {node: successors}: generation k
+    holds the nodes whose longest path from a source has k edges.
+    Raises ``ValueError`` on a cycle."""
+    indeg = {n: 0 for n in adj}
+    for succs in adj.values():
+        for q in succs:
+            indeg[q] += 1
+    gen = [n for n in adj if indeg[n] == 0]
+    out, seen = [], 0
+    while gen:
+        out.append(gen)
+        seen += len(gen)
+        nxt = []
+        for n in gen:
+            for q in adj[n]:
+                indeg[q] -= 1
+                if indeg[q] == 0:
+                    nxt.append(q)
+        gen = nxt
+    if seen != len(adj):
+        raise ValueError(f"execution graph has a cycle: {adj}")
+    return out
+
 
 @dataclasses.dataclass
 class MultimodalModule:
@@ -123,6 +162,21 @@ class MultimodalModule:
         ids = [e.modality_id for e in self.encoders.values()]
         if len(set(ids)) != len(ids) or 0 in ids:
             raise ValueError(f"modality ids must be unique and nonzero: {ids}")
+
+    # -- execution DAG (paper §3.2) -----------------------------------------
+    def execution_graph(self) -> Dict[str, List[str]]:
+        """{node: successors}: every encoder feeds "llm" (only true data
+        flow, no false dependencies between encoders)."""
+        adj: Dict[str, List[str]] = {name: ["llm"] for name in self.encoders}
+        adj["llm"] = []
+        topological_generations(adj)          # asserts acyclic
+        return adj
+
+    def independent_sets(self) -> List[List[str]]:
+        """Antichains of the DAG = groups executable in parallel
+        (modality parallelism, §4.1)."""
+        return [sorted(gen) for gen in
+                topological_generations(self.execution_graph())]
 
     # -- freezing ------------------------------------------------------------
     def freeze(self, name: str, *, module: Optional[bool] = None,
@@ -245,3 +299,71 @@ class MultimodalModule:
         if self.preprocess_callback:
             merged = self.preprocess_callback(enc_out, merged)
         return T.forward(params.llm, self.llm_cfg, merged), merged
+
+    # -- profiles for the partitioner ----------------------------------------
+    def profiles(self, text_len: int, batch: int = 1,
+                 recompute: bool = False):
+        """(encoder profiles in name order, LLM profile). Encoders have
+        nothing trainable upstream; the LLM has a trainable module
+        upstream when any projector or encoder trains."""
+        encs = [enc.profile(enc.num_tokens, batch, recompute)
+                for _, enc in sorted(self.encoders.items())]
+        llm = pp.profile_from_config(
+            self.llm_cfg, self.merged_length(text_len), batch=batch,
+            frozen=self.frozen_llm, recompute=recompute, name="llm")
+        for e in encs:
+            e.trainable_upstream = False
+        llm.trainable_upstream = any(
+            not e.frozen_projector or not e.frozen_module
+            for e in self.encoders.values())
+        return encs, llm
+
+
+# ---------------------------------------------------------------------------
+# Parallelism specs (paper §3.2)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ParallelSpec:
+    tp_size: int = 1
+    cp_size: int = 1
+    pp_size: int = 1
+
+    @property
+    def devices(self) -> int:
+        return self.tp_size * self.cp_size * self.pp_size
+
+
+@dataclasses.dataclass
+class MultimodalParallelSpec:
+    encoder_specs: Dict[str, ParallelSpec]
+    llm_spec: ParallelSpec
+    num_microbatches: int = 8
+    microbatch_size: int = 1
+    frozen_aware: bool = True
+    schedule: str = "1f1b"   # "1f1b" | "interleaved" | "zb-h1" | "zb-v"
+    # interleaved's virtual-chunk search: an int ceiling (try v..1) or
+    # an explicit candidate tuple; zb-v always searches {2, 1}
+    virtual_chunks: Any = 2
+
+    def apply(self, mllm: MultimodalModule, text_len: int = 1024) -> dict:
+        """The executor contract for a given allocation: per-module stage
+        partitions (frozen-aware rule), the modality-parallel graph and
+        its simulated schedule (``parallel.plan.build_executor_plan``).
+        ``parallel.parallelize`` searches the allocation instead."""
+        from repro_torch.parallel.plan import build_executor_plan
+        if set(self.encoder_specs) != set(mllm.encoders):
+            raise ValueError(f"specs for {sorted(self.encoder_specs)}, "
+                             f"encoders {sorted(mllm.encoders)}")
+        encs, llm = mllm.profiles(text_len, batch=self.microbatch_size)
+        enc_counts = [self.encoder_specs[e.name].pp_size for e in encs]
+        out = build_executor_plan(
+            encs, llm, enc_counts, self.llm_spec.pp_size,
+            self.num_microbatches, schedule=self.schedule,
+            virtual_chunks=self.virtual_chunks,
+            frozen_aware=self.frozen_aware)
+        # tp x cp x pp of every spec, not just the simulated pipeline ranks
+        out["devices"] = sum(s.devices
+                             for s in self.encoder_specs.values()) \
+            + self.llm_spec.devices
+        return out

@@ -1,5 +1,6 @@
 """Boundaries of the PyTorch port: importing ``repro_torch`` (every
-submodule) and ``chip_smoke.py`` loads neither ``jax`` nor ``repro``,
+submodule, the pipeline slice's among them) and ``chip_smoke.py`` loads
+neither ``jax`` nor ``repro`` nor ``networkx``,
 checked in a fresh interpreter because the test worker may already hold
 jax; the port's sources call no library attention or compiler; and
 ``chip_smoke.py`` refuses to run where there is no card."""
@@ -21,10 +22,21 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "networkx"))
+print(" ".join(names))
 assert not bad, bad
 """
+
+#: the pipeline slice's modules, which must be among those imported
+PIPELINE_MODULES = (
+    "repro_torch.core.schedule", "repro_torch.core.schedule.graph",
+    "repro_torch.core.schedule.schedulers",
+    "repro_torch.core.schedule.simulator",
+    "repro_torch.core.schedule.memory", "repro_torch.core.pipeline",
+    "repro_torch.core.modality", "repro_torch.core.modality_parallel",
+    "repro_torch.parallel.plan", "repro_torch.parallel.api",
+    "repro_torch.models.stages", "repro_torch.launch",
+    "repro_torch.launch.train")
 
 
 def _env():
@@ -38,14 +50,17 @@ def test_port_imports_neither_jax_nor_repro():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, env=_env(), cwd=str(ROOT))
     assert res.returncode == 0, res.stdout + res.stderr
-    n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 20
+    names = res.stdout.split()
+    assert len(names) >= 30
+    assert set(PIPELINE_MODULES) <= set(names), \
+        sorted(set(PIPELINE_MODULES) - set(names))
 
 
 def test_port_sources_call_no_library_attention():
     banned = ("scaled_dot_product_attention", "torch.compile",
               "flex_attention", "cudnn", "flash_attn", "import jax",
-              "from jax", "from repro.", "import repro\n")
+              "from jax", "from repro.", "import repro\n",
+              "import networkx", "from networkx")
     for path in PORT.rglob("*"):
         if path.suffix not in (".py", ".cu", ".cuh"):
             continue

@@ -1,0 +1,120 @@
+"""The port's single-process launcher, ``repro_torch.launch.train``,
+against the JAX package's ``repro.launch.train.main`` on the CPU.
+
+Both launchers start from the same weights: the port's ``init_lm`` and
+``init_mllm`` are replaced by the JAX init at the same seed carried over
+by ``repro_torch.bridge``, and both read equal synthetic streams (the
+same numpy draws). The logged losses must agree within LOSS_RTOL at
+every step for ``--mllm vlm --reduced`` (also with ``--train-llm``) and
+``--arch qwen3-1.7b --reduced``. ``--plan-out`` writes the JAX launcher's
+plan JSON byte for byte, ``--plan`` trains under a saved plan, and every
+flag whose module is not ported yet raises ``SystemExit`` naming its
+ROADMAP.md item."""
+import json
+
+import numpy as np
+import pytest
+
+import jax
+
+from repro.configs.base import get_config as jget_config
+from repro.launch import train as jtrain
+from repro.models import api as japi
+from repro_torch import bridge
+from repro_torch.launch import train as ttrain
+
+LOSS_RTOL = 2e-5
+MLLM_ARGS = ["--mllm", "vlm", "--reduced", "--steps", "3", "--seq", "16",
+             "--batch", "2", "--microbatches", "2", "--plan-devices", "3",
+             "--log-every", "0"]
+LM_ARGS = ["--arch", "qwen3-1.7b", "--reduced", "--steps", "3", "--seq",
+           "16", "--batch", "2", "--log-every", "0"]
+
+
+@pytest.fixture
+def jax_weights(monkeypatch):
+    """The port's inits return the JAX launcher's initial weights."""
+    def init_lm(cfg, args, device):
+        jp = japi.init(jax.random.PRNGKey(args.seed),
+                       jget_config(args.arch, reduced=args.reduced))
+        return bridge.from_jax_params(jax.tree.map(np.asarray, jp), cfg,
+                                      device=device)
+
+    def init_mllm(mllm, args, device):
+        from repro.models.mllm import build_paper_mllm
+        jm = build_paper_mllm(args.mllm, reduced=args.reduced,
+                              text_len=args.seq)
+        jp = jm.init(jax.random.PRNGKey(args.seed))
+        return bridge.mllm_from_jax_params(jax.tree.map(np.asarray, jp),
+                                           mllm, device=device)
+
+    monkeypatch.setattr(ttrain, "init_lm", init_lm)
+    monkeypatch.setattr(ttrain, "init_mllm", init_mllm)
+
+
+@pytest.mark.parametrize("argv", [MLLM_ARGS, MLLM_ARGS + ["--train-llm"],
+                                  LM_ARGS],
+                         ids=["vlm", "vlm-ft1", "qwen3-1.7b"])
+def test_launcher_logs_the_reference_losses(jax_weights, argv, capsys):
+    want = jtrain.main(argv)
+    got = ttrain.main(argv + ["--device", "cpu"])
+    assert got["params"] == want["params"]
+    np.testing.assert_allclose(got["losses"], want["losses"],
+                               rtol=LOSS_RTOL)
+    assert got["first_loss"] == got["losses"][0]
+    assert got["last_loss"] == got["losses"][-1]
+    out = capsys.readouterr().out
+    if "--mllm" in argv:
+        assert "plan not linted" in out
+
+
+def test_plan_out_and_plan(tmp_path, jax_weights):
+    """--plan-out writes the JAX launcher's plan; --plan trains under it
+    and gives the searched run's losses."""
+    jpath, tpath = tmp_path / "j.json", tmp_path / "t.json"
+    jtrain.main(MLLM_ARGS[:4] + ["1"] + MLLM_ARGS[5:]
+                + ["--plan-out", str(jpath), "--no-lint"])
+    searched = ttrain.main(MLLM_ARGS + ["--device", "cpu", "--plan-out",
+                                        str(tpath)])
+    assert tpath.read_text() == jpath.read_text()
+    assert json.loads(tpath.read_text())["format_version"] == 1
+    loaded = ttrain.main(MLLM_ARGS + ["--device", "cpu", "--plan",
+                                      str(jpath)])
+    assert loaded["losses"] == searched["losses"]
+
+
+def test_plan_for_other_encoders_is_refused(tmp_path):
+    path = tmp_path / "valm.json"
+    ttrain.main(["--mllm", "valm"] + MLLM_ARGS[2:]
+                + ["--steps", "1", "--device", "cpu", "--plan-out",
+                   str(path)])
+    with pytest.raises(ValueError, match="encoders"):
+        ttrain.main(MLLM_ARGS + ["--device", "cpu", "--plan", str(path)])
+
+
+@pytest.mark.parametrize("extra,item", [
+    (["--spmd"], "item 16"),
+    (["--ckpt-dir", "ck"], "item 17"),
+    (["--resume"], "item 17"),
+    (["--ckpt-every", "5"], "item 17"),
+    (["--keep", "2"], "item 17"),
+    (["--fault-plan", "f.json"], "item 18"),
+    (["--spike-sigma", "4"], "item 18"),
+])
+def test_unported_flags_refuse(extra, item):
+    with pytest.raises(SystemExit, match=item):
+        ttrain.main(MLLM_ARGS + ["--device", "cpu"] + extra)
+
+
+@pytest.mark.parametrize("argv", [[], MLLM_ARGS[:2] + LM_ARGS[:2]])
+def test_exactly_one_mode(argv):
+    with pytest.raises(SystemExit, match="exactly one"):
+        ttrain.main(argv)
+
+
+def test_launcher_defaults_to_the_card():
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(LM_ARGS)
