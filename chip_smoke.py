@@ -7,6 +7,7 @@ NVIDIA GPU. Run from the root of the repository:
     python3 chip_smoke.py --phases compact      # phases 1, 2b only
     python3 chip_smoke.py --phases kernels,cp   # phases 1-2, 7-8
     python3 chip_smoke.py --phases pp           # phases 1, 5b
+    python3 chip_smoke.py --phases pp,spmd      # phases 1, 5b, 5c
 
 Phases (any failure exits non-zero and prints no result line; the result
 line is printed only when every phase ran and passed):
@@ -126,6 +127,35 @@ line is printed only when every phase ran and passed):
    tolerances); and the launcher, ``repro_torch.launch.train.main`` with
    ``--mllm vlm --steps 2 --seq 1024 --batch 4 --microbatches 4
    --plan-devices 4`` at full width: finite losses.
+5c. ``spmd``: the distributed schedule runner (``parallel.spmd``), one
+   process per pipeline rank. The pp phase's model, weights, batch and
+   plan (interleaved v=4 on 2 pipeline ranks) with ``apply(mode="spmd")``:
+   the schedule lint must find no error (waves and fwd/bwd rounds
+   printed). Then 2 rank processes on the one card (NCCL refuses two
+   ranks on one card, so gloo, each handoff staged through pinned host
+   memory) each keep their own stages and run the wave program once,
+   counts zeroed just before and read just after in each: summed over
+   the ranks K1, K2 and K3 launch as ``pp_expected_launches`` derives.
+   Loss/M within ``SPMD_LOSS_RTOL`` of the pp replay's (bit-equality
+   printed), the projector gradient/M within ``SPMD_GRAD_RTOL``
+   (relative Frobenius). Each rank then takes one
+   ``make_spmd_train_step`` step (AdamW ``SPMD_OCFG``) on the same
+   batch: its global gradient norm and the projector's change within
+   ``SPMD_GRAD_RTOL`` of the same AdamW step on the pp replay's
+   gradients (bit-equality printed), optimizer state only for the
+   trained weights, and after it the frozen weights bit-identical with
+   no ``.grad``. Each rank's measured peak activations equal to the
+   simulated ones,
+   and ``validate_schedule_memory(executor="spmd")`` passes on every
+   rank. Step ms (2 processes time-slicing one card: no pipeline
+   speed), each rank's peak memory and the host-staged bytes per step
+   are printed beside the card's line. Last, ``launch.train --spmd`` at
+   the launcher phase's arguments spawns its own 2 ranks: its 2 losses
+   within ``SPMD_LOSS_RTOL`` of the replay launcher's. Then
+   ``ModalityIslands`` on cuda:0: the reduced valm's two encoders each
+   on its own CUDA stream, the LLM on the default one, logits within
+   1e-5 of max |logit| of ``mllm.forward`` at f32. ``--phases spmd``
+   runs the pp phase too.
 7. Context parallelism, on a NCCL process group of world size 1 (NCCL
    refuses two ranks on one card) with the 4-rank LPT plan applied to
    the sequence: 3 allgather and 3 ring steps of ``make_cp_train_step``
@@ -164,7 +194,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("kernels", "compact", "serving", "train", "pp", "cp")
+PHASES = ("kernels", "compact", "serving", "train", "pp", "spmd", "cp")
 KERNEL_KEYS = ("K1", "K1s", "K1c", "K2", "K2c", "K3", "K3c", "K4")
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1856,6 +1886,22 @@ def pp_single(mllm, params, batch):
     return loss.detach(), _grads(loss, dict(params.named_parameters()))
 
 
+def pp_adamw_step(named, grads) -> dict:
+    """One AdamW step (``SPMD_OCFG``) of copies of the trained weights
+    ``named`` on the replay's summed ``grads`` scaled by 1/M, as
+    ``make_spmd_train_step`` scales them: {"grad_norm", "delta": {name:
+    f32 change on the CPU}}."""
+    from repro_torch.optim import optimizer as opt
+    ocfg = opt.AdamWConfig(**SPMD_OCFG)
+    upd = {n: p.detach().clone() for n, p in named.items()}
+    _, _, om = opt.update(ocfg, {n: grads[n] * (1.0 / PP_MICROBATCHES)
+                                 for n in named},
+                          opt.init(ocfg, upd), upd)
+    return {"grad_norm": float(om["grad_norm"]),
+            "delta": {n: (upd[n].float() - p.detach().float()).cpu()
+                      for n, p in named.items()}}
+
+
 def pp_phase(smoke: Smoke):
     """The full-width vlm's pipeline plan, replayed on the card and held
     against the single-process step on the same weights and batch."""
@@ -1929,6 +1975,11 @@ def pp_phase(smoke: Smoke):
                     f"relative Frobenius error {rel:.2e} (tol "
                     f"{PP_BF16_GRAD_RTOL}); max |d| "
                     f"{float((got - want_g).abs().max()):.3e}")
+    smoke.pp_ref = {"loss": loss_r, "n_frozen": len(frozen),
+                    "grads": {n: (grads[n].float() / PP_MICROBATCHES).cpu()
+                              for n in trained},
+                    "step": pp_adamw_step({n: named[n] for n in trained},
+                                          grads)}
     del grads, ref
     same = sum(torch.equal(named[n], c) for n, c in frozen.items())
     no_grad = all(named[n].grad is None for n in frozen)
@@ -1949,6 +2000,7 @@ def pp_phase(smoke: Smoke):
     float(res2["loss"])
     ms_replay = (time.perf_counter() - t0) * 1e3
     peak_replay = torch.cuda.max_memory_allocated() / 2 ** 30
+    smoke.pp_ref["ms"] = ms_replay
     del res2
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2062,6 +2114,7 @@ def launch_phase(smoke: Smoke):
                        "1"])
     took = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    smoke.launch_losses = res["losses"]
     smoke.check(len(res["losses"]) == 2
                 and all(np.isfinite(x) for x in res["losses"]),
                 f"launcher [{smoke.smi}]: --mllm vlm at full width, "
@@ -2070,6 +2123,296 @@ def launch_phase(smoke: Smoke):
                 f"plan, peak memory {peak:.2f} GiB")
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 5c: the distributed schedule runner, one process per pipeline rank
+# ---------------------------------------------------------------------------
+
+#: the spmd run against the pp replay (bf16 on both sides, one schedule);
+#: the gradient tolerance also bounds the AdamW step's norm and change
+SPMD_LOSS_RTOL, SPMD_GRAD_RTOL = 1e-3, 1e-2
+#: the optimizer of the spmd step's check: the launcher's at --steps 2
+#: (lr 1e-3, one warmup step), so that the first step moves bf16 weights
+SPMD_OCFG = dict(lr=1e-3, warmup_steps=1, total_steps=2)
+
+
+def spmd_rank(rank: int, world: int, payload) -> dict:
+    """One of the spmd phase's rank processes, on the one card over
+    gloo: the pp phase's model and batch, only this rank's stages kept,
+    the plan's wave program run once with the launch counts zeroed just
+    before and read just after, then one ``make_spmd_train_step`` step
+    on the same batch, the memory check and two timed runs."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.schedule.memory import (MemoryModelMismatch,
+                                                  validate_schedule_memory)
+    from repro_torch.models.mllm import build_paper_mllm
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.parallel import spmd
+    from repro_torch.training.steps import make_spmd_train_step
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mllm = build_paper_mllm("vlm", llm_size="M", vision_size="S")
+    mllm.llm_cfg = mllm.llm_cfg.replace(attn_impl="bam_kernel")
+    ex = pp_plan(mllm).apply(mllm, mode="spmd")
+    bundle, prog, sim = ex["stage_bundle"], ex["spmd_program"], \
+        ex["schedule"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    params = mllm.init(device="cuda", generator=gen)
+    fmask = mllm.frozen_mask(params)
+    batch = next(iter(mllm_dataset(mllm, SEED + 8, PP_BATCH)))
+    mbs = bundle.encode_microbatches(batch, PP_MICROBATCHES)
+    stage_params, masks = bundle.hosted_share(params, prog.hosted[rank])
+    mine = {n: p for sp in stage_params if sp is not None
+            for n, p in sp.named_parameters()}
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    frozen = {n: p.detach().clone() for n, p in mine.items() if fmask[n]}
+    before = {n: p.detach().clone() for n, p in mine.items() if not fmask[n]}
+    runner = spmd.build_spmd_runner(
+        bundle.stage_fns, ex["sim_graph"], sim,
+        microbatch_loss=bundle.microbatch_loss, program=prog,
+        trainable=list(bundle.trainable))
+    torch.cuda.synchronize()
+    dist.barrier()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    res = runner(stage_params, mbs)
+    loss = float(res["loss"])
+    ms_first = (time.perf_counter() - t0) * 1e3
+    counts = kernel_counts()
+    full = spmd.gather_result(res)
+    grads = {}
+    if rank == 0:
+        for g in full["param_grads"]:
+            grads.update({n: (t.float() / PP_MICROBATCHES).cpu()
+                          for n, t in (g or {}).items()})
+    out = {"rank": rank, "loss": loss, "counts": counts, "grads": grads,
+           "peaks": res["peak_activations_per_device"],
+           "sim_peaks": sim["peak_activations_per_device"],
+           "trace_len": len(res["activation_trace"]),
+           "ms_first": ms_first, "weights_gib": weights_gib}
+    del full, res
+    # one train step on the same batch: the runner again, 1/M, AdamW
+    # over this rank's stages (only the trained ones get a state)
+    step = make_spmd_train_step(
+        bundle.stage_fns, ex["sim_graph"], sim, opt.AdamWConfig(**SPMD_OCFG),
+        microbatch_loss=bundle.microbatch_loss, frozen_mask=masks,
+        trainable=list(bundle.trainable), grad_scale=1.0 / PP_MICROBATCHES,
+        program=prog)
+    _, state, om = step(stage_params, None, mbs)
+    out["step"] = {"loss": float(om["loss"]),
+                   "grad_norm": float(om["grad_norm"]),
+                   "states": sum(m is not None for m in state["m"].values()),
+                   "delta": {n: (mine[n].detach().float() - b.float()).cpu()
+                             for n, b in before.items()}}
+    del step, state, before
+    out["frozen"] = (sum(torch.equal(mine[n], c) for n, c in frozen.items()),
+                     len(frozen),
+                     all(mine[n].grad is None for n in frozen))
+    del frozen
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        rep = validate_schedule_memory(
+            ex["sim_graph"], PP_MICROBATCHES, sim=sim,
+            stage_fn=bundle.stage_fns, stage_params=stage_params,
+            microbatches=mbs, executor="spmd")
+        out["memory"] = (True, rep["executor_peaks"])
+    except MemoryModelMismatch as e:                 # a failed check
+        out["memory"] = (False, str(e)[:400])
+    ms, staged = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        r = runner(stage_params, mbs)
+        float(r["loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        staged.append(r["staged_bytes"])
+        del r
+    out.update(ms=ms, staged=staged,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    return out
+
+
+def spmd_phase(smoke: Smoke):
+    """The pp phase's full-width vlm and plan, run by the distributed
+    runner with one process per pipeline rank (2 processes on the one
+    card over gloo, tensors staged through pinned host memory), held
+    against the pp replay; then the launcher's --spmd against its replay
+    run."""
+    torch = smoke.torch
+    from repro_torch.analysis import (format_findings, gate,
+                                      lint_executor_contract, lint_plan)
+    from repro_torch.launch import train as launch
+    from repro_torch.models.mllm import build_paper_mllm
+
+    mllm = build_paper_mllm("vlm", llm_size="M", vision_size="S")
+    mllm.llm_cfg = mllm.llm_cfg.replace(attn_impl="bam_kernel")
+    plan = pp_plan(mllm)
+    ex = plan.apply(mllm, mode="spmd")
+    prog, sim = ex["spmd_program"], ex["schedule"]
+    found = lint_plan(plan) + lint_executor_contract(ex)
+    rounds = [r.kind for w in prog.waves for r in w.rounds]
+    smoke.check(not gate(found),
+                f"schedule lint of apply(mode='spmd'): {len(found)} "
+                f"findings, no error"
+                f"{'; ' + format_findings(found) if found else ''}; "
+                f"program {plan.schedule.name} v="
+                f"{plan.schedule.virtual_chunks}: {len(prog.waves)} waves, "
+                f"{rounds.count('fwd')} fwd and {rounds.count('bwd')} bwd "
+                f"rounds, {len(prog.items)} items, stages per rank "
+                f"{prog.hosted}")
+    want = pp_expected_launches(ex["stage_bundle"], ex["sim_graph"], sim,
+                                mllm.llm_cfg.remat)
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    D = prog.num_devices
+    t0 = time.perf_counter()
+    res = launch.spawn_ranks(D, "gloo", spmd_rank, None)
+    took = time.perf_counter() - t0
+    r0 = res[0]
+    ref = smoke.pp_ref
+    total = {k: sum(res[r]["counts"][k] for r in res) for k in KERNEL_KEYS}
+    smoke.launches["spmd"] = {k: total[k] for k in ("K1", "K2", "K3", "K4")}
+    smoke.check(all(total[k] == want[k] for k in want)
+                and total["K4"] == 0 and total["K1s"] == 0,
+                f"spmd: launches summed over {D} ranks K1 {total['K1']}, K2 "
+                f"{total['K2']}, K3 {total['K3']}, K4 {total['K4']} = "
+                f"derived {want} (per rank: "
+                + "; ".join(f"{r}: K1 {res[r]['counts']['K1']} K2 "
+                            f"{res[r]['counts']['K2']} K3 "
+                            f"{res[r]['counts']['K3']}" for r in res) + ")")
+    loss = r0["loss"] / PP_MICROBATCHES
+    rl = abs(loss - ref["loss"]) / abs(ref["loss"])
+    smoke.check(rl <= SPMD_LOSS_RTOL,
+                f"spmd loss/M {loss!r} vs pp replay {ref['loss']!r} (rel "
+                f"{rl:.2e}, tol {SPMD_LOSS_RTOL}); bit-equal: "
+                f"{loss == ref['loss']}")
+    smoke.check(sorted(r0["grads"]) == sorted(ref["grads"]),
+                f"spmd gradients gathered on rank 0: {sorted(r0['grads'])}")
+    for name, want_g in ref["grads"].items():
+        got = r0["grads"].get(name)
+        rel = float((got - want_g).norm() / want_g.norm()) \
+            if got is not None else float("inf")
+        smoke.check(rel <= SPMD_GRAD_RTOL,
+                    f"spmd {name} gradient/M vs pp replay, relative "
+                    f"Frobenius error {rel:.2e} (tol {SPMD_GRAD_RTOL}); "
+                    f"bit-equal: {got is not None and torch.equal(got, want_g)}")
+    steps_ = [res[r]["step"] for r in sorted(res)]
+    gn, gn_ref = steps_[0]["grad_norm"], ref["step"]["grad_norm"]
+    rel = abs(gn - gn_ref) / gn_ref
+    smoke.check(all(st["grad_norm"] == gn for st in steps_)
+                and rel <= SPMD_GRAD_RTOL,
+                f"spmd make_spmd_train_step: global gradient norm {gn!r} "
+                f"(all-reduced over the ranks, 1/M) vs the pp replay's "
+                f"{gn_ref!r} (rel {rel:.2e}, tol {SPMD_GRAD_RTOL}); step loss "
+                f"{steps_[0]['loss']!r}")
+    delta = {}
+    for st in steps_:
+        delta.update(st["delta"])
+    smoke.check(sorted(delta) == sorted(ref["step"]["delta"])
+                and sum(st["states"] for st in steps_) == len(delta),
+                f"spmd AdamW: {len(delta)} trained parameters moved over "
+                f"the ranks, {[st['states'] for st in steps_]} optimizer "
+                f"states per rank (frozen slots none): {sorted(delta)}")
+    for name, want_d in ref["step"]["delta"].items():
+        got = delta.get(name)
+        rel = float((got - want_d).norm() / want_d.norm()) \
+            if got is not None else float("inf")
+        smoke.check(rel <= SPMD_GRAD_RTOL and float(want_d.norm()) > 0,
+                    f"spmd AdamW change of {name} vs the same step on the pp "
+                    f"replay's gradients, relative Frobenius {rel:.2e} (tol "
+                    f"{SPMD_GRAD_RTOL}), |change| {float(want_d.norm()):.3e}; "
+                    f"bit-equal: {got is not None and torch.equal(got, want_d)}")
+    same = sum(res[r]["frozen"][0] for r in res)
+    n_frozen = sum(res[r]["frozen"][1] for r in res)
+    no_grad = all(res[r]["frozen"][2] for r in res)
+    smoke.check(same == n_frozen == ref["n_frozen"] and no_grad,
+                f"spmd: {same}/{n_frozen} frozen parameters bit-identical "
+                f"over the ranks after the AdamW step (pp phase: "
+                f"{ref['n_frozen']}), none with a .grad ({no_grad})")
+    smoke.check(all(res[r]["peaks"][r] == r0["sim_peaks"][r] for r in res),
+                f"spmd: each rank's measured peak activations "
+                f"{[res[r]['peaks'][r] for r in sorted(res)]} == simulated "
+                f"{r0['sim_peaks']}; trace of {r0['trace_len']} items")
+    smoke.check(all(res[r]["memory"][0] for r in res),
+                f"spmd: validate_schedule_memory(executor='spmd') on every "
+                f"rank: {[res[r]['memory'][1] for r in sorted(res)]}")
+    ms = [max(res[r]["ms"][i] for r in res) for i in range(2)]
+    staged = [sum(res[r]["staged"][i] for r in res) for i in range(2)]
+    print(f"spmd [{smoke.smi}]: {D} rank processes time-slicing this one "
+          f"card (no pipeline overlap: not a pipeline's speed): step "
+          f"{ms[0]:.1f} / {ms[1]:.1f} ms (first "
+          f"{max(res[r]['ms_first'] for r in res):.1f}) against the pp "
+          f"replay's {ref['ms']:.1f} ms on the same batch; peak memory per "
+          f"rank " + ", ".join(f"{r}: {res[r]['peak_gib']:.2f} GiB "
+                               f"(weights and microbatches "
+                               f"{res[r]['weights_gib']:.2f})"
+                               for r in sorted(res))
+          + f"; host staging {staged[0] / 1e6:.1f} MB per step (card to "
+          f"host and back, both ranks); {took:.1f} s with spawn and init",
+          flush=True)
+
+    argv = ["--mllm", "vlm", "--steps", "2", "--seq", str(TEXT_LEN),
+            "--batch", str(PP_BATCH), "--microbatches",
+            str(PP_MICROBATCHES), "--plan-devices", str(PP_DEVICES),
+            "--log-every", "1"]
+    t0 = time.perf_counter()
+    got = launch.main(argv + ["--spmd"])
+    took = time.perf_counter() - t0
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(got["losses"], smoke.launch_losses))
+    smoke.check(len(got["losses"]) == 2 and rel <= SPMD_LOSS_RTOL,
+                f"launcher --spmd [{smoke.smi}]: losses {got['losses']} vs "
+                f"the replay launcher's {smoke.launch_losses} (max rel "
+                f"{rel:.2e}, tol {SPMD_LOSS_RTOL}); {took:.1f} s including "
+                f"spawn, init and plan")
+    gc.collect()
+    torch.cuda.empty_cache()
+    islands_check(smoke)
+
+
+def islands_check(smoke: Smoke):
+    """``ModalityIslands`` on the card: the reduced valm's two encoders,
+    each on its own CUDA stream of cuda:0, then the copy to the LLM's
+    device and the LLM, held against ``mllm.forward`` at f32."""
+    torch = smoke.torch
+    from repro_torch.core.modality_parallel import (ModalityIslands,
+                                                    split_devices)
+    from repro_torch.models.mllm import build_paper_mllm
+    mllm = build_paper_mllm("valm", reduced=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    params = mllm.init(device="cuda", generator=gen)
+    batch = {"text_tokens": torch.randint(
+        0, mllm.llm_cfg.vocab_size, (2, 64), generator=gen, device="cuda")}
+    for name, enc in mllm.encoders.items():
+        batch[f"{name}_embeds"] = torch.randn(
+            (2, enc.num_tokens, enc.cfg.d_model), generator=gen,
+            device="cuda")
+    isl = ModalityIslands(mllm, split_devices(mllm, ["cuda:0"] * 3))
+    streams = {n: i.stream for n, i in isl.islands.items()}
+    with torch.no_grad():
+        got, _ = isl.run(params, batch)
+        (want, _), _ = mllm.forward(params, batch)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    tol = 1e-5 * float(want.abs().max())
+    cur = torch.cuda.current_stream()
+    smoke.check(all(s is not None and s != cur for s in streams.values())
+                and got.shape == want.shape and err <= tol,
+                f"ModalityIslands on cuda:0: encoders {sorted(streams)} each "
+                f"on its own stream, logits {tuple(got.shape)} vs "
+                f"mllm.forward max |d| {err:.3e} (tol {tol:.3e}, 1e-5 of "
+                f"max |logit|, f32); bit-equal: {torch.equal(got, want)}")
 
 
 # ---------------------------------------------------------------------------
@@ -2383,6 +2726,8 @@ def main() -> int:
                     help=f"comma-separated subset of {','.join(PHASES)}; "
                     f"the result line needs all of them")
     phases = set(ap.parse_args().phases.split(","))
+    if "spmd" in phases:            # held against the pp phase's numbers
+        phases.add("pp")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2442,6 +2787,8 @@ def main() -> int:
         pp_phase(smoke)
         pp_parity_phase(smoke)
         launch_phase(smoke)
+    if "spmd" in phases:
+        spmd_phase(smoke)
     if "cp" in phases:
         cp_phases(smoke)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "

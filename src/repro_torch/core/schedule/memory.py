@@ -131,6 +131,7 @@ def validate_schedule_memory(graph: PipelineGraph, num_microbatches: int,
                              microbatches=None,
                              sim: Optional[Dict[str, object]] = None,
                              executor: str = "replay",
+                             group=None,
                              claim_sim: Optional[Dict[str, object]] = None
                              ) -> Dict[str, object]:
     """Simulate ``schedule`` on ``graph``, replay the timeline on the
@@ -139,18 +140,16 @@ def validate_schedule_memory(graph: PipelineGraph, num_microbatches: int,
     Without a model, ``toy_stage_model`` is built from ``generator``
     (default: a CPU generator seeded 0). A precomputed ``sim`` skips the
     scheduler call; ``claim_sim`` lets the claimed timeline differ from
-    the executed one. ``executor`` is ``"replay"`` (``execute_schedule``);
-    ``"spmd"``, the distributed runner, is not ported yet. Raises
-    :class:`MemoryModelMismatch` on any divergence; returns the
+    the executed one. ``executor`` is ``"replay"`` (``execute_schedule``
+    in this process) or ``"spmd"`` (``parallel.spmd.run_schedule_spmd``
+    on the ranks of ``group``, default the default process group, one
+    rank per simulated device; call it on every rank, each with the same
+    model and microbatches, and each checks the reassembled trace).
+    Raises :class:`MemoryModelMismatch` on any divergence; returns the
     comparison report otherwise."""
     from repro_torch.core.modality_parallel import execute_schedule
 
-    if executor == "spmd":
-        raise NotImplementedError(
-            "executor='spmd' (the distributed schedule runner, "
-            "run_schedule_spmd) is not ported yet: ROADMAP.md queue 1 "
-            "item 16")
-    if executor != "replay":
+    if executor not in ("replay", "spmd"):
         raise ValueError(f"unknown executor {executor!r}; pick "
                          f"'replay' or 'spmd'")
     if sim is None:
@@ -163,8 +162,13 @@ def validate_schedule_memory(graph: PipelineGraph, num_microbatches: int,
             len(graph.stages), num_microbatches, d_model=d_model,
             batch=batch, seq=seq, generator=generator)
 
-    measured = execute_schedule(stage_fn, stage_params, microbatches,
-                                graph, sim)
+    if executor == "spmd":
+        from repro_torch.parallel.spmd import run_schedule_spmd
+        measured = run_schedule_spmd(stage_fn, stage_params, microbatches,
+                                     graph, sim, group=group)
+    else:
+        measured = execute_schedule(stage_fn, stage_params, microbatches,
+                                    graph, sim)
     claimed = sim if claim_sim is None else claim_sim
     sim_peaks = claimed["peak_activations_per_device"]
     exe_peaks = measured["peak_activations_per_device"]

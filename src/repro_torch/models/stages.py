@@ -43,7 +43,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -203,6 +204,19 @@ class StageBundle:
                                   else enc.frozen_projector)
             out.append(mask)
         return out
+
+    def hosted_share(self, params, hosted
+                     ) -> Tuple[List[Optional[StageParams]],
+                                List[Dict[str, bool]]]:
+        """One pipeline rank's share of ``params``: the ``StageParams``
+        of the stages in ``hosted`` (None for the others, so that nothing
+        here keeps another rank's parameters once the caller drops
+        ``params``) and every stage's frozen mask."""
+        stages = self.partition(params)
+        masks = self.frozen_masks(stages)
+        hosted = set(hosted)
+        return [sp if s in hosted else None
+                for s, sp in enumerate(stages)], masks
 
     @property
     def layout_meta(self) -> Dict[str, Any]:

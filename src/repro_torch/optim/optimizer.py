@@ -76,13 +76,16 @@ def init(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
 @torch.no_grad()
 def update(cfg: AdamWConfig, grads: Mapping[str, Optional[torch.Tensor]],
            state: dict, params: Mapping[str, torch.Tensor],
-           frozen_mask: Optional[Mapping[str, bool]] = None):
+           frozen_mask: Optional[Mapping[str, bool]] = None,
+           grad_norm: Optional[torch.Tensor] = None):
     """Returns (params, new_state, metrics {"grad_norm", "lr"}); params
     are updated in place. A trainable leaf with no gradient (``None``)
     is updated as if its gradient were zero, as the JAX function sees
-    the zeros ``stop_gradient`` gives."""
+    the zeros ``stop_gradient`` gives. ``grad_norm`` is the global norm
+    when ``grads`` are one share of the model's gradients (a pipeline
+    rank's stages); it defaults to ``global_norm(grads)``."""
     frozen_mask = frozen_mask or {}
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip else 1.0)
     step = state["step"] + 1

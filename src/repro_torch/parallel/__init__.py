@@ -5,8 +5,9 @@
     plan.save("plan.json")
     executor = plan.apply(mllm)         # the replay contract
 
-``plan`` holds the data model, ``api`` the search entry points. The
-distributed wave/collective program (``spmd``) is not ported yet.
+``plan`` holds the data model, ``api`` the search entry points and
+``spmd`` the distributed schedule runner (one process per pipeline
+rank, ``plan.apply(mllm, mode="spmd")``).
 """
 from .plan import (ClusterSpec, ContextPlan,  # noqa: F401
                    MLLMParallelPlan, PLAN_FORMAT_VERSION, SchedulePlan,

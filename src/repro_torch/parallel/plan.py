@@ -19,7 +19,9 @@ re-partitions the module profiles at the planned stage counts,
 re-simulates the pinned (schedule, virtual_chunks) pair and returns a
 dict whose ``"graph"`` has one stage per device and whose
 ``"sim_graph"`` and ``"schedule"`` are what ``models.stages`` and
-``core.modality_parallel.execute_schedule`` replay.
+``core.modality_parallel.execute_schedule`` replay;
+``plan.apply(mllm, mode="spmd")`` adds the compiled wave program and the
+stage bundle the distributed runner (``parallel.spmd``) executes.
 """
 from __future__ import annotations
 
@@ -311,18 +313,19 @@ class MLLMParallelPlan:
         profiles, partition at the planned stage counts, re-simulate the
         pinned (schedule, virtual_chunks) pair and return the executor
         contract (:func:`build_executor_plan`) with ``"plan"`` and
-        ``"context"``. Only ``mode="replay"`` (one process replaying the
-        timeline, ``core.modality_parallel.execute_schedule``) is
-        ported; ``mode="spmd"`` raises."""
-        if mode == "spmd":
-            raise NotImplementedError(
-                "mode='spmd' (the wave/collective program of the "
-                "distributed runner) is not ported yet: ROADMAP.md queue "
-                "1 item 16")
-        if mode != "replay":
+        ``"context"``. ``mode="replay"`` is the contract
+        ``core.modality_parallel.execute_schedule`` replays in one
+        process; ``mode="spmd"`` also ships the compiled wave program
+        (``parallel.spmd.compile_spmd_program``) under ``"spmd_program"``,
+        which the distributed runner executes and
+        ``analysis.schedlint.lint_spmd_program`` checks, and the real
+        MLLM's stage partition (``models.stages.build_mllm_stages``)
+        under ``"stage_bundle"``."""
+        if mode not in ("replay", "spmd"):
             raise ValueError(
                 f"unknown executor mode {mode!r}; pick 'replay' "
-                f"(sequential timeline replay) or 'spmd'")
+                f"(sequential timeline replay) or 'spmd' (one process "
+                f"per pipeline rank)")
         names = tuple(sorted(mllm.encoders))
         if names != tuple(sorted(self.stage.encoder_names)):
             raise ValueError(
@@ -340,6 +343,13 @@ class MLLMParallelPlan:
             frozen_aware=self.stage.frozen_aware)
         out["plan"] = self
         out["context"] = self.context
+        if mode == "spmd":
+            from repro_torch.models.stages import build_mllm_stages
+            from repro_torch.parallel.spmd import compile_spmd_program
+            out["spmd_program"] = compile_spmd_program(
+                out["sim_graph"], out["schedule"])
+            out["stage_bundle"] = build_mllm_stages(
+                mllm, out, text_len=text_len or self.text_len)
         return out
 
     # -- human-readable dump -----------------------------------------------

@@ -19,6 +19,11 @@ own run of tokens, and attention crosses ranks through
 ``core.context_parallel``; loss and gradients equal the unpermuted
 ``make_train_step``'s.
 
+``make_spmd_train_step(stage_fn, graph, sim)`` -> pipeline-parallel
+training with one process per pipeline rank: each step runs the plan's
+compiled wave program through ``parallel.spmd``'s runner and applies
+AdamW to this rank's stages.
+
 A step updates the parameters in place and returns
 ``(params, opt_state, metrics)`` like the JAX step; metrics hold 0-dim
 tensors (read them with ``float``, which waits for the device).
@@ -279,3 +284,74 @@ def make_mllm_train_step(mllm, ocfg: Optional[opt.AdamWConfig] = None):
         return params, opt_state, {"loss": loss.detach(), **metrics, **om}
 
     return step, loss_fn
+
+
+# ---------------------------------------------------------------------------
+# SPMD pipeline train step (one process per pipeline rank)
+# ---------------------------------------------------------------------------
+
+def make_spmd_train_step(stage_fn, graph, sim,
+                         ocfg: Optional[opt.AdamWConfig] = None, *,
+                         group=None, microbatch_loss=None, frozen_mask=None,
+                         trainable=None, grad_scale: float = 1.0,
+                         dispatch: str = "rolled", program=None):
+    """Pipeline-parallel train step driven by a simulated schedule and
+    run by ``parallel.spmd.build_spmd_runner`` on this rank of ``group``
+    (call it on every rank).
+
+    ``stage_fn``, ``microbatch_loss`` and ``trainable`` follow
+    ``execute_schedule``'s contract (a ``models.stages.StageBundle``
+    gives all three); ``graph`` and ``sim`` are ``executor["sim_graph"]``
+    and ``executor["schedule"]`` of ``plan.apply(mllm, mode="spmd")``,
+    whose ``"spmd_program"`` may be passed as ``program``. ``step(
+    stage_params, opt_state, microbatches)`` runs the schedule once,
+    scales the summed per-microbatch loss and gradients by
+    ``grad_scale`` (1/M for ``StageBundle.microbatch_loss``) and applies
+    AdamW to the parameters of the stages this rank hosts, in place,
+    clipped by the global gradient norm over every rank. ``stage_params``
+    is a stage list (None for the stages other ranks host) or a
+    stage-stacked dict; ``frozen_mask`` is a per-stage list of {name:
+    frozen} (``StageBundle.frozen_masks``), and frozen slots get no
+    optimizer state. Pass ``opt_state=None`` on the first call: the step
+    creates the state over this rank's parameters, keyed
+    ``"<stage>:<name>"``. Returns ``(stage_params, opt_state, {"loss",
+    "grad_norm", "lr"})``, the loss summed over ranks."""
+    from repro_torch.parallel import spmd
+    ocfg = ocfg or opt.AdamWConfig()
+    runner = spmd.build_spmd_runner(
+        stage_fn, graph, sim, group=group, microbatch_loss=microbatch_loss,
+        trainable=trainable, dispatch=dispatch, program=program)
+    hosted = runner.program.hosted[runner.rank]
+    mask = {f"{s}:{name}": frozen
+            for s in hosted for name, frozen in
+            (frozen_mask[s].items() if frozen_mask is not None else ())}
+
+    def step(stage_params, opt_state, microbatches):
+        named = spmd.local_named_parameters(stage_params, hosted)
+        if opt_state is None:
+            opt_state = opt.init(ocfg, named, mask)
+        res = runner(stage_params, microbatches)
+        pg = res["param_grads"]
+        grads = {}
+        for s in hosted:
+            per = pg[s] if isinstance(pg, list) else \
+                {k: v[s] for k, v in pg.items()}
+            for name, g in per.items():
+                grads[f"{s}:{name}"] = g * grad_scale
+        # the clip's norm is over every rank's gradients (gloo reduces
+        # CPU tensors)
+        dev = microbatches.device \
+            if dist.get_backend(runner.group) == "nccl" else "cpu"
+        sq = torch.zeros((), dtype=torch.float32, device=dev)
+        for g in grads.values():
+            sq = sq + torch.sum(torch.square(g.float())).to(dev)
+        dist.all_reduce(sq, group=runner.group)
+        gnorm = torch.sqrt(sq).to(microbatches.device)
+        _, opt_state, om = opt.update(ocfg, grads, opt_state, named, mask,
+                                      grad_norm=gnorm)
+        loss = res["loss"] * grad_scale
+        return stage_params, opt_state, {"loss": loss, **om}
+
+    step.runner = runner
+    return step
+

@@ -1,5 +1,6 @@
 """Boundaries of the PyTorch port: importing ``repro_torch`` (every
-submodule, the pipeline slice's among them) and ``chip_smoke.py`` loads
+submodule, the pipeline slice's, the schedule lint's and the SPMD
+runner's among them) and ``chip_smoke.py`` loads
 neither ``jax`` nor ``repro`` nor ``networkx``,
 checked in a fresh interpreter because the test worker may already hold
 jax; the port's sources call no library attention or compiler; and
@@ -27,7 +28,8 @@ print(" ".join(names))
 assert not bad, bad
 """
 
-#: the pipeline slice's modules, which must be among those imported
+#: the pipeline slice's, schedlint's and the SPMD runner's modules, which
+#: must be among those imported
 PIPELINE_MODULES = (
     "repro_torch.core.schedule", "repro_torch.core.schedule.graph",
     "repro_torch.core.schedule.schedulers",
@@ -36,7 +38,9 @@ PIPELINE_MODULES = (
     "repro_torch.core.modality", "repro_torch.core.modality_parallel",
     "repro_torch.parallel.plan", "repro_torch.parallel.api",
     "repro_torch.models.stages", "repro_torch.launch",
-    "repro_torch.launch.train")
+    "repro_torch.launch.train", "repro_torch.analysis",
+    "repro_torch.analysis.findings", "repro_torch.analysis.schedlint",
+    "repro_torch.parallel.spmd")
 
 
 def _env():
@@ -51,7 +55,7 @@ def test_port_imports_neither_jax_nor_repro():
                          text=True, timeout=120, env=_env(), cwd=str(ROOT))
     assert res.returncode == 0, res.stdout + res.stderr
     names = res.stdout.split()
-    assert len(names) >= 30
+    assert len(names) >= 34
     assert set(PIPELINE_MODULES) <= set(names), \
         sorted(set(PIPELINE_MODULES) - set(names))
 

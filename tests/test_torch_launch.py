@@ -7,9 +7,12 @@ by ``repro_torch.bridge``, and both read equal synthetic streams (the
 same numpy draws). The logged losses must agree within LOSS_RTOL at
 every step for ``--mllm vlm --reduced`` (also with ``--train-llm``) and
 ``--arch qwen3-1.7b --reduced``. ``--plan-out`` writes the JAX launcher's
-plan JSON byte for byte, ``--plan`` trains under a saved plan, and every
-flag whose module is not ported yet raises ``SystemExit`` naming its
-ROADMAP.md item."""
+plan JSON byte for byte, ``--plan`` trains under a saved plan, every
+plan passes the schedule lint gate, a corrupted plan is refused by it
+(and ``--no-lint`` lets it through), ``--spmd`` spawns the plan's 2
+ranks and logs the ``--plan`` replay's losses, and every flag whose
+module is not ported yet raises ``SystemExit`` naming its ROADMAP.md
+item."""
 import json
 
 import numpy as np
@@ -65,7 +68,7 @@ def test_launcher_logs_the_reference_losses(jax_weights, argv, capsys):
     assert got["last_loss"] == got["losses"][-1]
     out = capsys.readouterr().out
     if "--mllm" in argv:
-        assert "plan not linted" in out
+        assert "plan passed the schedule lint" in out
 
 
 def test_plan_out_and_plan(tmp_path, jax_weights):
@@ -93,7 +96,7 @@ def test_plan_for_other_encoders_is_refused(tmp_path):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--spmd"], "item 16"),
+    (["--spmd"], None),              # ported: runs (item 16)
     (["--ckpt-dir", "ck"], "item 17"),
     (["--resume"], "item 17"),
     (["--ckpt-every", "5"], "item 17"),
@@ -101,9 +104,46 @@ def test_plan_for_other_encoders_is_refused(tmp_path):
     (["--fault-plan", "f.json"], "item 18"),
     (["--spike-sigma", "4"], "item 18"),
 ])
-def test_unported_flags_refuse(extra, item):
+def test_unported_flags_refuse(extra, item, tmp_path, capsys):
+    args = MLLM_ARGS + ["--device", "cpu"]
+    if item is None:
+        # --spmd is ported: the plan's 2 pipeline ranks, spawned, log the
+        # losses of the one-process run under the same plan
+        path = tmp_path / "plan.json"
+        replay = ttrain.main(args + ["--plan-out", str(path)])
+        got = ttrain.main(args + ["--plan", str(path)] + extra)
+        out = capsys.readouterr().out
+        assert "spawning 2 rank processes (gloo" in out
+        assert got["params"] == replay["params"]
+        np.testing.assert_allclose(got["losses"], replay["losses"],
+                                   rtol=LOSS_RTOL)
+        return
     with pytest.raises(SystemExit, match=item):
-        ttrain.main(MLLM_ARGS + ["--device", "cpu"] + extra)
+        ttrain.main(args + extra)
+
+
+def test_lint_gate_refuses_a_corrupted_plan(tmp_path):
+    """A plan whose claims contradict themselves is refused before any
+    step, with schedlint's findings; --no-lint trains under it."""
+    from repro_torch.parallel import MLLMParallelPlan
+    args = MLLM_ARGS + ["--device", "cpu", "--steps", "1"]
+    good = tmp_path / "good.json"
+    ttrain.main(args + ["--plan-out", str(good)])
+    plan = MLLMParallelPlan.load(str(good))
+    bad = tmp_path / "bad.json"
+    json.dump(dict(json.loads(plan.to_json()), schedule=dict(
+        json.loads(plan.to_json())["schedule"], bubble_fraction=1.5)),
+        bad.open("w"))
+    with pytest.raises(SystemExit, match="plan-consistency"):
+        ttrain.main(args + ["--plan", str(bad)])
+    res = ttrain.main(args + ["--plan", str(bad), "--no-lint"])
+    assert np.isfinite(res["losses"]).all()
+
+
+def test_spmd_refuses_an_indivisible_batch():
+    with pytest.raises(SystemExit, match="divisible"):
+        ttrain.main(MLLM_ARGS[:8] + ["3"] + MLLM_ARGS[9:]
+                    + ["--device", "cpu", "--spmd"])
 
 
 @pytest.mark.parametrize("argv", [[], MLLM_ARGS[:2] + LM_ARGS[:2]])
@@ -118,3 +158,33 @@ def test_launcher_defaults_to_the_card():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(LM_ARGS)
+
+
+@pytest.mark.parametrize("env,cards,want", [
+    # one host, a card per rank: NCCL, the card of the local rank
+    ({"RANK": "1", "WORLD_SIZE": "4", "LOCAL_RANK": "1",
+      "LOCAL_WORLD_SIZE": "4"}, 4, ("nccl", 1, 4, "cuda:1")),
+    # two hosts of 4 cards: global rank 6 is host 1's local rank 2
+    ({"RANK": "6", "WORLD_SIZE": "8", "LOCAL_RANK": "2",
+      "LOCAL_WORLD_SIZE": "4"}, 4, ("nccl", 6, 8, "cuda:2")),
+    # two hosts of 1 card, a rank each: NCCL, each on its own cuda:0
+    ({"RANK": "1", "WORLD_SIZE": "2", "LOCAL_RANK": "0",
+      "LOCAL_WORLD_SIZE": "1"}, 1, ("nccl", 1, 2, "cuda:0")),
+    # two ranks sharing one card: gloo through host staging
+    ({"RANK": "1", "WORLD_SIZE": "2", "LOCAL_RANK": "1",
+      "LOCAL_WORLD_SIZE": "2"}, 1, ("gloo", 1, 2, "cuda:0")),
+], ids=["one-host", "two-hosts", "a-card-per-host", "shared-card"])
+def test_torchrun_placement(monkeypatch, env, cards, want):
+    """Under torchrun the card comes from LOCAL_RANK and NCCL is chosen
+    when this host has a card for each of its LOCAL_WORLD_SIZE ranks,
+    whatever the world size."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    backend, rank, world, dev = ttrain.torchrun_placement("cuda", env)
+    assert (backend, rank, world, str(dev)) == want
+    # the same host spawning its own ranks decides the same way
+    local = int(env["LOCAL_WORLD_SIZE"])
+    sb, sdevs = ttrain.spmd_devices("cuda", local)
+    assert sb == backend and sdevs[int(env["LOCAL_RANK"])] == dev
+    assert ttrain.torchrun_placement("cpu", env)[0] == "gloo"

@@ -149,9 +149,18 @@ def test_apply_contract_equals_reference(kind, devices):
 
 
 def test_apply_refuses_spmd_and_other_encoders():
-    _, tm, _, got = plans("vlm")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        got.apply(tm, mode="spmd")
+    """mode="spmd" (ported) ships the reference's compiled program and a
+    stage bundle; other modes and another MLLM's encoders are refused."""
+    jm, tm, want, got = plans("vlm")
+    tex, jex = got.apply(tm, mode="spmd"), want.apply(jm, mode="spmd")
+    assert_contract_equal(tex, jex)
+    tprog, jprog = tex["spmd_program"], jex["spmd_program"]
+    assert tprog.counts() == jprog.counts()
+    assert [(sorted(w.compute.items()), [r.pairs for r in w.rounds])
+            for w in tprog.waves] == \
+        [(sorted(w.compute.items()), [r.pairs for r in w.rounds])
+         for w in jprog.waves]
+    assert len(tex["stage_bundle"].specs) == len(tex["sim_graph"].stages)
     with pytest.raises(ValueError, match="executor mode"):
         got.apply(tm, mode="threads")
     with pytest.raises(ValueError, match="encoders"):

@@ -249,10 +249,25 @@ def test_divergent_claim_fails_loudly():
         jmem.diff_activation_traces(trace, shifted, 4)
 
 
-def test_spmd_executor_not_ported():
+def test_spmd_executor_not_ported(tmp_path):
+    """executor="spmd" (ported) runs the distributed runner on the
+    current process group: a one-device schedule on a world-size-1 gloo
+    group in this process passes; a two-device one is refused there
+    (tests/test_torch_spmd.py runs it on 2 and 4 ranks)."""
+    import torch.distributed as dist
     _, tg = two_rank("1f1b", False)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tmem.validate_schedule_memory(tg, M, executor="spmd")
+    one = tsch.chain_graph([tsch.Stage("m", 1.0, 2.0, bwd_w=1.0)])
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        rep = tmem.validate_schedule_memory(one, M, executor="spmd")
+        assert rep["executor"] == "spmd"
+        assert rep["executor_peaks"] == rep["simulated_peaks"] == [1]
+        assert rep["loss"] == tmem.validate_schedule_memory(one, M)["loss"]
+        with pytest.raises(ValueError, match="compiled for 2"):
+            tmem.validate_schedule_memory(tg, M, executor="spmd")
+    finally:
+        dist.destroy_process_group()
     with pytest.raises(ValueError, match="unknown executor"):
         tmem.validate_schedule_memory(tg, M, executor="other")
 

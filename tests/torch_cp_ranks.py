@@ -5,6 +5,7 @@ one gloo process group through a file store under a test's tmp_path
 returns their results by rank. Ranks import torch and the port only, so
 they start without JAX; the tests compare what they return with the JAX
 package in the test process."""
+import importlib
 import multiprocessing as mp
 import queue
 import traceback
@@ -17,10 +18,11 @@ JOIN_TIMEOUT = 120
 
 def run_ranks(world: int, fn: str, payload, store_dir, timeout=JOIN_TIMEOUT):
     """{rank: fn(rank, world, payload)}; raises with the rank's traceback
-    if one fails, and if any rank has not finished within ``timeout``."""
+    if one fails, and if any rank has not finished within ``timeout``.
+    ``fn`` names a function of this module, or ``"module:function"``."""
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
-    store = f"{store_dir}/gloo_store_{fn}_{world}"
+    store = f"{store_dir}/gloo_store_{fn.replace(':', '_')}_{world}"
     procs = [ctx.Process(target=_rank_main,
                          args=(rank, world, store, fn, payload, out))
              for rank in range(world)]
@@ -59,7 +61,12 @@ def _rank_main(rank, world, store, fn, payload, out):
         dist.init_process_group("gloo", init_method=f"file://{store}",
                                 rank=rank, world_size=world)
         try:
-            res = globals()[fn](rank, world, payload)
+            if ":" in fn:
+                module, name = fn.split(":")
+                res = getattr(importlib.import_module(module), name)(
+                    rank, world, payload)
+            else:
+                res = globals()[fn](rank, world, payload)
         finally:
             dist.destroy_process_group()
         out.put((rank, True, res))
