@@ -8,6 +8,7 @@ NVIDIA GPU. Run from the root of the repository:
     python3 chip_smoke.py --phases kernels,cp   # phases 1-2, 7-8
     python3 chip_smoke.py --phases pp           # phases 1, 5b
     python3 chip_smoke.py --phases pp,spmd      # phases 1, 5b, 5c
+    python3 chip_smoke.py --phases resilience   # phases 1, 5d
 
 Phases (any failure exits non-zero and prints no result line; the result
 line is printed only when every phase ran and passed):
@@ -156,6 +157,35 @@ line is printed only when every phase ran and passed):
    on its own CUDA stream, the LLM on the default one, logits within
    1e-5 of max |logit| of ``mllm.forward`` at f32. ``--phases spmd``
    runs the pp phase too.
+5d. ``resilience``: the training runtime at full width and depth (the
+   train phase's vlm, bf16, remat on, attn_impl="bam_kernel", batches of
+   ``PP_BATCH`` at text 1024, seed 0), checkpoints under the checkout's
+   ignored ``build/resilience`` (free space checked first with
+   ``shutil.disk_usage``: the phase fails, with the numbers, where it is
+   short). An uninterrupted run of 4 guarded steps
+   (``make_resilient_train_step`` under a ``ResilientTrainer``), launch
+   counts zeroed just before and read just after: K1, K2 and K3 per
+   step as the train step's (K1 2 x 32 under remat, K2 and K3 32); plain
+   and guarded steps in turns, their ms printed (the guard's cost). The
+   same run from the same seed under a ``CheckpointManager`` saving
+   every 2 steps, crashed by a ``crash`` fault before step 3, then
+   ``resume=True`` to step 4: the losses before the crash and after the
+   resume bit-equal to the uninterrupted run's (the step that diverged
+   and the largest difference printed otherwise); the first save's
+   bytes and seconds, the later save's (every frozen shard hardlinked
+   forward, only the projector, its moments, AdamW's step, the EMA and
+   the placeholders written), the verified loads' seconds. Two
+   ``nan_grads`` faults under ``skip_limit=1``: the first is skipped
+   (every parameter, moment and the EMA ``torch.equal`` after it), the
+   second rolls back to the step-4 checkpoint and the run goes on.
+   Then 2 rank processes on the one card over gloo adopt the replay
+   checkpoint of step 4 (each loads its stages' layers) and take the
+   spmd step 4 under the pp phase's plan: its loss within
+   ``SPMD_LOSS_RTOL`` of the single process's. Last, with the LLM cut
+   to ``RES_SPMD_LLM_LAYERS`` layers (full width), 2 ranks save one
+   checkpoint together every 2 steps and crash before step 3
+   (``CrashInjected`` must reach the caller of ``spawn_ranks``); 2 new
+   ranks resume it: step 2's loss bit-equal to the crashed run's.
 7. Context parallelism, on a NCCL process group of world size 1 (NCCL
    refuses two ranks on one card) with the 4-rank LPT plan applied to
    the sequence: 3 allgather and 3 ring steps of ``make_cp_train_step``
@@ -182,6 +212,7 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -194,7 +225,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("kernels", "compact", "serving", "train", "pp", "spmd", "cp")
+PHASES = ("kernels", "compact", "serving", "train", "pp", "spmd",
+          "resilience", "cp")
 KERNEL_KEYS = ("K1", "K1s", "K1c", "K2", "K2c", "K3", "K3c", "K4")
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -2416,6 +2448,432 @@ def islands_check(smoke: Smoke):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5d: the training runtime (checkpoints, the resilience runtime)
+# ---------------------------------------------------------------------------
+
+#: guarded steps of the uninterrupted run; the interrupted run saves
+#: every RES_CKPT_EVERY steps and crashes before step RES_CRASH
+RES_STEPS, RES_CKPT_EVERY, RES_CRASH = 4, 2, 3
+#: AdamW of the runtime's runs (the train phase's)
+RES_OCFG = dict(lr=1e-3, warmup_steps=1, total_steps=10)
+#: LLM depth of the rank-sharded spmd save, crash and resume (full
+#: width; the depth keeps its two checkpoints to a few GB of disk)
+RES_SPMD_LLM_LAYERS = 8
+
+
+def res_root(name: str) -> Path:
+    """A checkpoint root under the checkout's ignored build/, empty."""
+    root = ROOT / "build" / "resilience" / name
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    return root
+
+
+def res_vlm(llm_layers=None):
+    from repro_torch.models.mllm import build_paper_mllm
+    mllm = build_paper_mllm("vlm", llm_size="M", vision_size="S")
+    mllm.llm_cfg = mllm.llm_cfg.replace(attn_impl="bam_kernel")
+    if llm_layers:
+        mllm.llm_cfg = mllm.llm_cfg.replace(num_layers=llm_layers)
+    return mllm
+
+
+def res_timed(torch, manager, log: list):
+    """Wrap ``manager.save``/``restore`` to time each call (ending in a
+    device sync) and, for a save, count the bytes it wrote (files with
+    one link) and the frozen shards it hardlinked forward."""
+    save, restore = manager.save, manager.restore
+
+    def timed_save(step, tree, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = save(step, tree, **kw)
+        secs = time.perf_counter() - t0
+        st = {f: os.stat(os.path.join(d, f)) for f in os.listdir(d)
+              if f.endswith(".npy")}
+        log.append({"op": "save", "step": step, "s": secs, "dir": d,
+                    "bytes": sum(s.st_size for s in st.values()
+                                 if s.st_nlink == 1),
+                    "new": {f for f, s in st.items() if s.st_nlink == 1},
+                    "reused": sum(s.st_nlink > 1 for s in st.values()),
+                    "shards": len(st)})
+        return d
+
+    def timed_restore(like=None, **kw):
+        t0 = time.perf_counter()
+        out = restore(like, **kw)
+        torch.cuda.synchronize()
+        log.append({"op": "load", "step": out[1],
+                    "s": time.perf_counter() - t0})
+        return out
+
+    manager.save, manager.restore = timed_save, timed_restore
+    return manager
+
+
+def res_trainer(mllm, params, *, root=None, faults=(), ckpt_every=0,
+                resume=False, monitor=None, log=None, step_fn=None):
+    """A ``ResilientTrainer`` over the guarded vlm step, the replay
+    launcher's frozen checkpoint paths, and ``mllm_dataset``'s stream of
+    batches of PP_BATCH."""
+    import torch
+    from repro_torch.launch.train import frozen_ckpt_paths
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.resilience import (CheckpointManager, CursorStream,
+                                        FaultInjector, FaultPlan,
+                                        ResilientTrainer,
+                                        make_resilient_train_step)
+    from repro_torch.training.steps import make_mllm_train_step
+    ocfg = opt.AdamWConfig(**RES_OCFG)
+    fmask = mllm.frozen_mask(params)
+    if step_fn is None:
+        step_fn = make_resilient_train_step(
+            make_mllm_train_step(mllm, ocfg)[1], ocfg, fmask)
+    manager = None
+    if root is not None:
+        manager = res_timed(torch, CheckpointManager(
+            str(root), frozen_paths=frozen_ckpt_paths(mllm, False)), log)
+    return ResilientTrainer(
+        step_fn, params, opt.init(ocfg, dict(params.named_parameters()),
+                                  fmask),
+        CursorStream(lambda: mllm_dataset(mllm, SEED, PP_BATCH)),
+        monitor=monitor, manager=manager,
+        injector=FaultInjector(FaultPlan.make(list(faults))),
+        ckpt_every=ckpt_every, resume=resume,
+        meta={"seed": SEED, "mllm": "vlm", "mode": "replay"})
+
+
+def res_disk_need(mllm) -> int:
+    """Bytes of the phase's two roots together, with 5% headroom: the
+    replay root's leaves once (the later saves hardlink the frozen ones;
+    the trainable ones and their two f32 moments once per retained
+    step) and the depth-cut spmd root's two checkpoints. The replay root
+    is deleted before the spmd one is written, so this bounds the disk
+    the phase holds at once from above."""
+    params = mllm.init(device="meta")
+    fmask = mllm.frozen_mask(params)
+    frozen = sum(p.numel() * p.element_size()
+                 for n, p in params.named_parameters() if fmask[n])
+    train = sum(p.numel() * (p.element_size() + 8)
+                for n, p in params.named_parameters() if not fmask[n])
+    cut = res_vlm(RES_SPMD_LLM_LAYERS).init(device="meta")
+    cut_bytes = sum(p.numel() * p.element_size()
+                    for p in cut.parameters())
+    return int(1.05 * (frozen + 3 * train + 2 * cut_bytes))
+
+
+def resilience_phase(smoke: Smoke):
+    """The guarded vlm step and its checkpoints at full width and depth
+    (the train phase's model, bf16, remat on, batches of PP_BATCH): an
+    uninterrupted run, an interrupted one resumed bit for bit, frozen
+    shards hardlinked forward, a NaN skip and rollback; then --spmd's
+    cross-mode adopt and a rank-sharded save, crash and resume on 2 rank
+    processes."""
+    torch = smoke.torch
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch import train as launch
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.resilience import (CrashInjected, Fault, HealthMonitor,
+                                        MonitorConfig, default_controls)
+    from repro_torch.training.steps import make_mllm_train_step
+
+    mllm = res_vlm()
+    need = res_disk_need(mllm)
+    (ROOT / "build").mkdir(exist_ok=True)
+    free = shutil.disk_usage(ROOT / "build").free
+    smoke.check(free >= need, f"resilience: {free / 1e9:.1f} GB free under "
+                f"build/, the phase needs {need / 1e9:.1f} GB")
+    if free < need:
+        return
+    L, remat = mllm.llm_cfg.num_layers, mllm.llm_cfg.remat
+    want = {"K1": L * (2 if remat else 1), "K2": L, "K3": L}
+    if "train" in smoke.launches:
+        smoke.check(all(smoke.launches["train"][k] == 3 * want[k]
+                        for k in want), f"train phase per step {want}")
+
+    # 1. an uninterrupted run: RES_STEPS guarded steps, no disk
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = mllm.init(device="cuda", generator=gen)
+    tr = res_trainer(mllm, params)
+    zero_counts()
+    run1 = tr.run(RES_STEPS)["losses"]
+    counts = kernel_counts()
+    per = {k: counts[k] / RES_STEPS for k in want}
+    smoke.check(per == {k: float(v) for k, v in want.items()}
+                and counts["K4"] == 0,
+                f"resilience: launches per guarded step K1 {per['K1']}, K2 "
+                f"{per['K2']}, K3 {per['K3']} = the train step's {want} "
+                f"({RES_STEPS} steps, K4 {counts['K4']}); losses {run1}")
+    # the guard's cost: plain and guarded steps in turns, same params
+    plain_step, _ = make_mllm_train_step(mllm, opt.AdamWConfig(**RES_OCFG))
+    batch = tr.stream.next()
+    ms = {"plain": [], "guarded": []}
+    for _ in range(3):
+        for kind in ("plain", "guarded"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == "plain":
+                _, tr.opt_state, met = plain_step(tr.params, tr.opt_state,
+                                                  batch)
+                float(met["loss"])
+            else:
+                _, tr.opt_state, tr.health, _ = tr.step_fn(
+                    tr.params, tr.opt_state, tr.health, batch,
+                    default_controls())
+            torch.cuda.synchronize()
+            ms[kind].append((time.perf_counter() - t0) * 1e3)
+    smoke.resilience = {"plain_ms": ms["plain"], "guarded_ms": ms["guarded"]}
+    print(f"resilience [{smoke.smi}]: step ms, plain "
+          f"{[round(x, 1) for x in ms['plain']]}, guarded (one bundle read "
+          f"before the update) {[round(x, 1) for x in ms['guarded']]}; "
+          f"medians {sorted(ms['plain'])[1]:.1f} / "
+          f"{sorted(ms['guarded'])[1]:.1f} ms", flush=True)
+    del tr, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. the same run from the same seed, saved every RES_CKPT_EVERY
+    # steps and crashed before step RES_CRASH; then resumed
+    root = res_root("replay")
+    saves: list = []
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = mllm.init(device="cuda", generator=gen)
+    tr = res_trainer(mllm, params, root=root, log=saves,
+                     faults=[Fault("crash", RES_CRASH)],
+                     ckpt_every=RES_CKPT_EVERY)
+    try:
+        tr.run(RES_STEPS)
+        crashed = None
+    except CrashInjected as e:
+        crashed = str(e)
+    pre = dict(tr.losses)
+    smoke.check(crashed is not None and pre == {k: run1[k] for k in pre}
+                and sorted(pre) == list(range(RES_CRASH)),
+                f"resilience: crash injected ({crashed}); steps {sorted(pre)} "
+                f"before it bit-equal to the uninterrupted run")
+    tr = res_trainer(mllm, params, root=root, log=saves, resume=True,
+                     ckpt_every=RES_CKPT_EVERY)
+    post = tr.run(RES_STEPS)["losses"]
+    diverged = [k for k in post if post[k] != run1[k]]
+    worst = max((abs(post[k] - run1[k]) for k in post), default=0.0)
+    smoke.check(sorted(post) == list(range(RES_CKPT_EVERY, RES_STEPS))
+                and not diverged,
+                f"resilience: resumed at step {RES_CKPT_EVERY}, losses "
+                f"{post} bit-equal to the uninterrupted run's "
+                f"{ {k: run1[k] for k in post} } (diverged at "
+                f"{diverged or 'none'}, max |d| {worst:.3e})")
+    first = next(s for s in saves if s["op"] == "save")
+    later = [s for s in saves if s["op"] == "save" and s is not first]
+    loads = [s for s in saves if s["op"] == "load"]
+    man = ckpt.read_manifest(later[-1]["dir"]) if later else {"entries": []}
+    frozen_entries = [e for e in man["entries"] if e["path"].startswith(
+        ("params/encoders/vision/module", "params/llm"))]
+    # a later save writes the projector, its moments, AdamW's step and
+    # the EMA, and links every frozen shard
+    rest = {e["file"] for e in man["entries"]} - {
+        e["file"] for e in frozen_entries}
+    smoke.check(bool(later) and later[-1]["reused"] == len(frozen_entries)
+                > 0 and later[-1]["new"] == rest
+                and later[-1]["shards"] == len(man["entries"]),
+                f"resilience [{smoke.smi}]: first save (step "
+                f"{first['step']}) {first['bytes']} bytes in {first['s']:.2f} "
+                f"s ({first['bytes'] / first['s'] / 1e9:.2f} GB/s); later "
+                f"save(s) " + "; ".join(
+                    f"step {s['step']}: {s['bytes']} bytes in {s['s']:.2f} s, "
+                    f"{s['reused']} of {s['shards']} shards hardlinked "
+                    f"forward" for s in later)
+                + f" (frozen: {len(frozen_entries)}; written: "
+                f"{len(rest)} shards, the projector, its moments, AdamW's "
+                f"step, the EMA and the frozen slots' (0,) placeholders); "
+                f"verified load(s) "
+                + ", ".join(f"{s['s']:.2f} s" for s in loads))
+
+    # 3. a NaN skip, then a NaN rollback, from the resumed state
+    monitor = HealthMonitor(MonitorConfig(skip_limit=1))
+    inner, skip_seen = tr.step_fn, []
+
+    def watched(p, state, health, batch, controls):
+        if controls["inject_nan"] == 0 or skip_seen:
+            return inner(p, state, health, batch, controls)
+        before = ({n: t.detach().clone() for n, t in p.named_parameters()},
+                  {k: {n: None if t is None else t.clone()
+                       for n, t in state[k].items()} for k in ("m", "v")},
+                  state["step"], dict(health))
+        out = inner(p, state, health, batch, controls)
+        same = (all(torch.equal(t, before[0][n])
+                    for n, t in out[0].named_parameters())
+                and all((t is None and before[1][k][n] is None)
+                        or torch.equal(t, before[1][k][n])
+                        for k in ("m", "v") for n, t in out[1][k].items())
+                and out[1]["step"] == before[2] and out[2] == before[3])
+        skip_seen.append((same, float(out[3][0])))
+        return out
+
+    resumed = tr
+    tr = res_trainer(mllm, params, root=root, log=saves, monitor=monitor,
+                     faults=[Fault("nan_grads", RES_STEPS),
+                             Fault("nan_grads", RES_STEPS + 1)],
+                     step_fn=watched)
+    tr.adopt_state(params, resumed.opt_state, resumed.health,
+                   step=RES_STEPS, cursor=RES_STEPS)
+    del resumed
+    res = tr.run(RES_STEPS + 2)
+    smoke.res_loss4 = res["losses"].get(RES_STEPS)
+    smoke.check(res["skipped"] == 1 and res["rollbacks"] == 1
+                and skip_seen and skip_seen[0][0]
+                and sorted(res["losses"]) == [RES_STEPS, RES_STEPS + 1]
+                and all(np.isfinite(v) for v in res["losses"].values())
+                and skip_seen[0][1] == smoke.res_loss4,
+                f"resilience: NaN at step {RES_STEPS} skipped, every "
+                f"parameter, moment and the EMA torch.equal after it "
+                f"({bool(skip_seen and skip_seen[0][0])}); NaN at step "
+                f"{RES_STEPS + 1} rolled back to step "
+                f"{[e['step'] for e in monitor.log.of_kind('restore')]} and "
+                f"retried at clip_scale {res['clip_scale']} (its verified "
+                f"load {saves[-1]['s']:.2f} s): losses {res['losses']} (the "
+                f"skipped step's loss "
+                f"{skip_seen[0][1] if skip_seen else None})")
+    del tr, inner, watched, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. --spmd: a cross-mode adopt of the replay checkpoint, one step
+    adopt = str(root / f"step_{RES_STEPS:08d}")
+    t0 = time.perf_counter()
+    out = launch.spawn_ranks(2, "gloo", resilience_rank, {
+        "adopt": adopt, "steps": RES_STEPS + 1})
+    took = time.perf_counter() - t0
+    got = out[0]["losses"].get(RES_STEPS)
+    rel = abs(got - smoke.res_loss4) / abs(smoke.res_loss4) \
+        if got is not None and smoke.res_loss4 else float("inf")
+    smoke.check(rel <= SPMD_LOSS_RTOL and out[1]["losses"] == out[0]["losses"],
+                f"resilience --spmd [{smoke.smi}]: 2 ranks adopt the replay "
+                f"checkpoint of step {RES_STEPS} (each loads its share: "
+                + ", ".join(f"{out[r]['load_s']:.2f} s" for r in sorted(out))
+                + f"), step {RES_STEPS} loss {got!r} vs the single process's "
+                f"{smoke.res_loss4!r} (rel {rel:.2e}, tol {SPMD_LOSS_RTOL}); "
+                f"{took:.1f} s with spawn and init")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # 5. --spmd, LLM cut to RES_SPMD_LLM_LAYERS: the ranks' save, a crash
+    # on both, and a resume
+    sroot = res_root("spmd")
+    payload = {"root": str(sroot), "steps": RES_STEPS,
+               "llm_layers": RES_SPMD_LLM_LAYERS,
+               "ckpt_every": RES_CKPT_EVERY,
+               "faults": [("crash", RES_CRASH)]}
+    try:
+        launch.spawn_ranks(2, "gloo", resilience_rank, payload)
+        crash = None
+    except CrashInjected as e:
+        crash = str(e)
+    pre = json.loads((sroot / "losses_0.json").read_text())
+    d = sroot / f"step_{RES_CKPT_EVERY:08d}"
+    man = ckpt.read_manifest(str(d))
+    size = sum(f.stat().st_size for f in d.iterdir())
+    out = launch.spawn_ranks(2, "gloo", resilience_rank, dict(
+        payload, faults=[], resume=True))
+    post = out[0]["losses"]
+    k = RES_CKPT_EVERY
+    first_s = json.loads((sroot / "saves_0.json").read_text())
+    smoke.check(crash is not None and man["meta"]["mode"] == "spmd"
+                and sorted(post) == list(range(k, RES_STEPS))
+                and post[k] == pre[str(k)]
+                and all(np.isfinite(v) for v in post.values()),
+                f"resilience --spmd [{smoke.smi}], LLM "
+                f"{RES_SPMD_LLM_LAYERS} layers: CrashInjected reached the "
+                f"caller ({crash}); the ranks' checkpoint of step {k}: "
+                f"{len(man['entries'])} shards, {size} bytes, saved in "
+                f"{first_s} s; resumed losses {post} (saves "
+                f"{[round(x, 2) for x in out[0]['save_s']]} s), step {k} "
+                f"bit-equal to the crashed run's {pre[str(k)]!r}")
+    shutil.rmtree(ROOT / "build" / "resilience", ignore_errors=True)
+
+
+def resilience_rank(rank: int, world: int, payload) -> dict:
+    """One of the resilience phase's spmd rank processes on the one card
+    over gloo: the vlm (LLM cut to ``llm_layers`` if given) under the pp
+    phase's plan, this rank's stages kept, the guarded spmd step under a
+    ``ResilientTrainer`` whose checkpoints the ranks write together."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.resilience import (CheckpointManager, CursorStream,
+                                        Fault, FaultInjector, FaultPlan,
+                                        ResilientTrainer,
+                                        make_resilient_train_step)
+    from repro_torch.training.steps import make_spmd_train_step
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mllm = res_vlm(payload.get("llm_layers"))
+    ex = pp_plan(mllm).apply(mllm, mode="spmd")
+    bundle, prog = ex["stage_bundle"], ex["spmd_program"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = mllm.init(device="cuda", generator=gen)
+    stage_params, masks = bundle.hosted_share(params, prog.hosted[rank])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    skeleton = bundle.partition(mllm.init(device="meta"))
+    stages = [sp if sp is not None else skeleton[s]
+              for s, sp in enumerate(stage_params)]
+    ocfg = opt.AdamWConfig(**RES_OCFG)
+    spmd_step = make_spmd_train_step(
+        bundle.stage_fns, ex["sim_graph"], ex["schedule"], ocfg,
+        microbatch_loss=bundle.microbatch_loss, frozen_mask=masks,
+        trainable=list(bundle.trainable),
+        grad_scale=1.0 / PP_MICROBATCHES, program=prog)
+
+    def value_and_grad(sp, batch):
+        loss, grads = spmd_step.value_and_grad(
+            sp, bundle.encode_microbatches(batch, PP_MICROBATCHES))
+        return (loss, {}), grads
+
+    step_fn = make_resilient_train_step(
+        None, ocfg, spmd_step.frozen_mask, value_and_grad_fn=value_and_grad,
+        global_norm_fn=spmd_step.global_norm,
+        named_parameters=spmd_step.named_parameters)
+    state = opt.init(ocfg, spmd_step.named_parameters(stages),
+                     spmd_step.frozen_mask)
+    manager = None
+    saves: list = []
+    if payload.get("root"):
+        manager = res_timed(torch, CheckpointManager(
+            payload["root"], group=dist.group.WORLD), saves)
+    tr = ResilientTrainer(
+        step_fn, stages, state,
+        CursorStream(lambda: mllm_dataset(mllm, SEED, PP_BATCH)),
+        manager=manager, injector=FaultInjector(FaultPlan.make(
+            [Fault(k, s) for k, s in payload.get("faults", [])])),
+        ckpt_every=payload.get("ckpt_every", 0),
+        resume=payload.get("resume", False),
+        meta={"seed": SEED, "mllm": "vlm", "mode": "spmd",
+              "spmd_layout": json.dumps(bundle.layout_meta)})
+    out = {"rank": rank}
+    if payload.get("adopt"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, step = ckpt.load(payload["adopt"], {
+            "params": bridge.params_tree(bundle.unpartition(stages))})
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        tr.adopt_state(stages, state, step=step, cursor=step)
+    try:
+        res = tr.run(payload["steps"])
+    finally:
+        if payload.get("root") and rank == 0:
+            root = Path(payload["root"])
+            (root / "losses_0.json").write_text(json.dumps(tr.losses))
+            (root / "saves_0.json").write_text(json.dumps(
+                [s["s"] for s in saves if s["op"] == "save"]))
+    out["losses"] = res["losses"]
+    out["save_s"] = [s["s"] for s in saves if s["op"] == "save"]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 7 and 8: the context-parallel train path
 # ---------------------------------------------------------------------------
 
@@ -2789,6 +3247,10 @@ def main() -> int:
         launch_phase(smoke)
     if "spmd" in phases:
         spmd_phase(smoke)
+    if "resilience" in phases:
+        resilience_phase(smoke)
+        gc.collect()
+        torch.cuda.empty_cache()
     if "cp" in phases:
         cp_phases(smoke)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s after the "

@@ -1,19 +1,27 @@
-"""Weight bridge: the JAX package's parameter tree (as numpy) -> the
-port's modules, so both packages compute with the same weights.
+"""Weight bridge between the JAX package's parameter tree (as numpy)
+and the port's modules, both ways, so both packages compute with the
+same weights and read each other's checkpoints.
 
 The JAX tree stacks every layer's leaves on a leading axis
 (``layers.stacked_init``); the port holds one module per layer, so that
 axis is unstacked into ``layers.<i>.<path>``. Both packages keep
 weights as [d_in, d_out], so every other leaf is a plain copy. Loads are
 strict: every parameter on both sides must be matched.
+
+The way back (``jax_tree``, ``params_tree``, ``state_tree``) nests the
+port's parameter names on their dots and stacks ``layers.<i>`` again as
+a ``checkpoint.Stacked`` leaf that refers to the live tensors; the
+``to_jax_*`` functions materialise it as numpy (bfloat16 as float32,
+which holds it exactly).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpoint import Stacked, paths_and_leaves
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import api
@@ -90,3 +98,217 @@ def mllm_from_jax_params(tree: Mapping, mllm, device="cuda"):
     params = _load(mllm.init(device="meta"), flat, dev)
     mllm.apply_freeze(params)
     return params
+
+
+# ---------------------------------------------------------------------------
+# The way back: port modules -> the reference's tree
+# ---------------------------------------------------------------------------
+
+def _split_layer(name: str) -> Tuple[List[str], Optional[int]]:
+    """'llm.layers.3.attn.wq' -> (['llm', 'layers', 'attn', 'wq'], 3)."""
+    parts = name.split(".")
+    for k in range(len(parts) - 1):
+        if parts[k] == "layers" and parts[k + 1].isdigit():
+            return parts[:k + 1] + parts[k + 2:], int(parts[k + 1])
+    return parts, None
+
+
+def jax_tree(named: Mapping[str, torch.Tensor]) -> dict:
+    """{port name: tensor} -> the reference's nested tree: names nest on
+    their dots and the layers of ``<a>.layers.<i>.<b>`` stack again into
+    one ``Stacked`` leaf at ``a/layers/b`` (layer order, which must be
+    contiguous)."""
+    tree: dict = {}
+    stacks: Dict[Tuple[str, ...], Dict[int, torch.Tensor]] = {}
+    for name, t in named.items():
+        keys, layer = _split_layer(name)
+        if layer is None:
+            _put(tree, keys, t, name)
+        else:
+            stacks.setdefault(tuple(keys), {})[layer] = t
+    for keys, by_layer in stacks.items():
+        order = sorted(by_layer)
+        if order != list(range(order[0], order[0] + len(order))):
+            raise ValueError(f"{'/'.join(keys)}: layers {order} are not "
+                             f"contiguous")
+        _put(tree, list(keys), Stacked([by_layer[i] for i in order]),
+             "/".join(keys))
+    return tree
+
+
+def _put(tree: dict, keys: List[str], leaf, name: str) -> None:
+    node = tree
+    for k in keys[:-1]:
+        node = node.setdefault(k, {})
+        if not isinstance(node, dict):
+            raise ValueError(f"{name}: {k!r} is both a leaf and a subtree")
+    if keys[-1] in node:
+        raise ValueError(f"{name}: path held twice")
+    node[keys[-1]] = leaf
+
+
+def _stage_names(stage) -> Dict[str, torch.Tensor]:
+    """A ``models.stages.StageParams``' parameters under the reference's
+    stage-tree names: the ``encoders.<m>.module.``, ``encoders.<m>.``
+    and ``llm.`` prefixes dropped."""
+    out = {}
+    for name, p in stage.named_parameters():
+        parts = name.split(".")
+        if parts[0] == "encoders":
+            parts = parts[3:] if parts[2] == "module" else parts[2:]
+        elif parts[0] == "llm":
+            parts = parts[1:]
+        out[".".join(parts)] = p
+    return out
+
+
+def _named(params) -> Tuple[Any, Dict[int, str]]:
+    """(the reference-layout tree of ``params``, {id(tensor): optimizer
+    key}). ``params`` is a module (keys are its parameter names) or a
+    stage list (keys ``"<stage>:<name>"``, as ``make_spmd_train_step``
+    keys its state)."""
+    if isinstance(params, (list, tuple)):
+        keys = {id(p): f"{s}:{n}" for s, st in enumerate(params)
+                for n, p in st.named_parameters()}
+        return [jax_tree(_stage_names(st)) for st in params], keys
+    named = dict(params.named_parameters())
+    return jax_tree(named), {id(p): n for n, p in named.items()}
+
+
+def params_tree(params):
+    """The reference-layout tree over a module's or a stage list's live
+    parameters (see ``_named``)."""
+    return _named(params)[0]
+
+
+def _slot_tree(ptree, slot_of):
+    """The optimizer-slot tree matching ``ptree``: each leaf's slot
+    tensors (``slot_of(param)``), or the reference's (0,) f32
+    placeholder where the leaf is frozen (no slot)."""
+    def leaf(x):
+        parts = x.parts if isinstance(x, Stacked) else [x]
+        slots = [slot_of(p) for p in parts]
+        if all(s is None for s in slots):
+            return torch.zeros((0,), dtype=torch.float32,
+                               device="meta" if parts[0].is_meta else "cpu")
+        if any(s is None for s in slots):
+            raise ValueError("a stacked leaf is frozen only in part")
+        return Stacked(slots) if isinstance(x, Stacked) else slots[0]
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return leaf(node)
+    return walk(ptree)
+
+
+def _opt_tree(ptree, keys: Dict[int, str], opt_state: Mapping):
+    """{"m", "step", "v"} in the reference's layout. A parameter on the
+    meta device (another rank's) gets a meta slot, or none if it is
+    frozen (``requires_grad`` off)."""
+    def slot(kind):
+        def of(p):
+            if p.is_meta:
+                return torch.empty(p.shape, dtype=torch.float32,
+                                   device="meta") if p.requires_grad \
+                    else None
+            return opt_state[kind][keys[id(p)]]
+        return of
+    return {"m": _slot_tree(ptree, slot("m")),
+            "step": np.asarray(opt_state["step"], np.int32),
+            "v": _slot_tree(ptree, slot("v"))}
+
+
+def state_tree(params, opt_state: Mapping, health: Mapping) -> dict:
+    """The training state ``{"params", "opt", "health"}`` in the
+    reference's checkpoint layout, over the live tensors (a restore
+    writes into them): AdamW's ``step`` as an int32 scalar, a frozen
+    leaf's moments as the (0,) f32 placeholder, the health EMA as
+    f32/f32/int32 scalars."""
+    ptree, keys = _named(params)
+    return {"health": {"count": np.asarray(health["count"], np.int32),
+                       "ema": np.asarray(health["ema"], np.float32),
+                       "var": np.asarray(health["var"], np.float32)},
+            "opt": _opt_tree(ptree, keys, opt_state),
+            "params": ptree}
+
+
+def _to_numpy(tree):
+    """A tree's leaves as numpy (Stacked stacked; bf16 as f32)."""
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        if isinstance(node, Stacked):
+            return np.stack([conv(p) for p in node.parts])
+        if isinstance(node, torch.Tensor):
+            return conv(node)
+        return np.asarray(node)
+    return walk(tree)
+
+
+def _check_depth(tree: Mapping, num_layers: int, what: str) -> None:
+    for path, leaf in paths_and_leaves(tree.get("layers", {})):
+        if leaf.shape[0] != num_layers:
+            raise ValueError(f"{what}layers/{path}: {leaf.shape[0]} layers, "
+                             f"the config has {num_layers}")
+
+
+def to_jax_params(model, cfg: ModelConfig) -> dict:
+    """The JAX package's parameter tree (numpy leaves) of a port model:
+    the inverse of ``from_jax_params``."""
+    tree = jax_tree(dict(model.named_parameters()))
+    _check_depth(tree, cfg.num_layers, "")
+    return _to_numpy(tree)
+
+
+def mllm_to_jax_params(params, mllm) -> dict:
+    """The JAX package's ``MultimodalModule.init`` tree (numpy leaves) of
+    the port's ``MLLMParams``: the inverse of ``mllm_from_jax_params``."""
+    tree = jax_tree(dict(params.named_parameters()))
+    if set(tree.get("encoders", {})) != set(mllm.encoders):
+        raise KeyError(f"encoders {sorted(tree.get('encoders', {}))} are "
+                       f"not the module's ({sorted(mllm.encoders)})")
+    for name, enc in mllm.encoders.items():
+        _check_depth(tree["encoders"][name]["module"], enc.cfg.num_layers,
+                     f"encoders/{name}/module/")
+    _check_depth(tree["llm"], mllm.llm_cfg.num_layers, "llm/")
+    return _to_numpy(tree)
+
+
+def opt_state_to_jax(opt_state: Mapping, params) -> dict:
+    """The reference's AdamW state ``{"step", "m", "v"}`` (numpy leaves,
+    frozen slots as the (0,) f32 placeholder) of the port's state over
+    ``params`` (a module or a stage list)."""
+    ptree, keys = _named(params)
+    return _to_numpy(_opt_tree(ptree, keys, opt_state))
+
+
+def opt_state_from_jax(tree: Mapping, params) -> dict:
+    """The port's AdamW state over ``params`` (a module or a stage list)
+    from the reference's ``{"step", "m", "v"}`` (numpy leaves): the
+    inverse of ``opt_state_to_jax``. Slots land on their parameter's
+    device in f32; a (0,) placeholder becomes ``None``."""
+    ptree, keys = _named(params)
+    flat_p = paths_and_leaves(ptree)
+    out = {"step": int(np.asarray(tree["step"])), "m": {}, "v": {}}
+    for kind in ("m", "v"):
+        flat_s = dict(paths_and_leaves(tree[kind]))
+        for path, leaf in flat_p:
+            arr = np.asarray(flat_s[path])
+            parts = leaf.parts if isinstance(leaf, Stacked) else [leaf]
+            for k, p in enumerate(parts):
+                if arr.shape == (0,):
+                    out[kind][keys[id(p)]] = None
+                    continue
+                a = arr[k] if isinstance(leaf, Stacked) else arr
+                out[kind][keys[id(p)]] = torch.from_numpy(
+                    np.array(a, np.float32)).to(p.device)
+    return out

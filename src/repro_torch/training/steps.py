@@ -22,7 +22,8 @@ own run of tokens, and attention crosses ranks through
 ``make_spmd_train_step(stage_fn, graph, sim)`` -> pipeline-parallel
 training with one process per pipeline rank: each step runs the plan's
 compiled wave program through ``parallel.spmd``'s runner and applies
-AdamW to this rank's stages.
+AdamW to this rank's stages; its gradient pass, norm and parameters are
+also exposed on their own, for the guarded step.
 
 A step updates the parameters in place and returns
 ``(params, opt_state, metrics)`` like the JAX step; metrics hold 0-dim
@@ -315,7 +316,13 @@ def make_spmd_train_step(stage_fn, graph, sim,
     optimizer state. Pass ``opt_state=None`` on the first call: the step
     creates the state over this rank's parameters, keyed
     ``"<stage>:<name>"``. Returns ``(stage_params, opt_state, {"loss",
-    "grad_norm", "lr"})``, the loss summed over ranks."""
+    "grad_norm", "lr"})``, the loss summed over ranks.
+
+    Its parts, for the guarded step (``resilience.monitor``), are
+    attributes: ``value_and_grad(stage_params, microbatches) -> (loss,
+    grads)`` runs the schedule and scales both, ``global_norm(grads)``
+    all-reduces the norm, ``named_parameters(stage_params)`` and
+    ``frozen_mask`` key AdamW's state."""
     from repro_torch.parallel import spmd
     ocfg = ocfg or opt.AdamWConfig()
     runner = spmd.build_spmd_runner(
@@ -325,11 +332,14 @@ def make_spmd_train_step(stage_fn, graph, sim,
     mask = {f"{s}:{name}": frozen
             for s in hosted for name, frozen in
             (frozen_mask[s].items() if frozen_mask is not None else ())}
+    where = {}
 
-    def step(stage_params, opt_state, microbatches):
-        named = spmd.local_named_parameters(stage_params, hosted)
-        if opt_state is None:
-            opt_state = opt.init(ocfg, named, mask)
+    def named_parameters(stage_params):
+        return spmd.local_named_parameters(stage_params, hosted)
+
+    def value_and_grad(stage_params, microbatches):
+        """(loss, {"<stage>:<name>": gradient}), both scaled."""
+        where["device"] = microbatches.device
         res = runner(stage_params, microbatches)
         pg = res["param_grads"]
         grads = {}
@@ -338,20 +348,33 @@ def make_spmd_train_step(stage_fn, graph, sim,
                 {k: v[s] for k, v in pg.items()}
             for name, g in per.items():
                 grads[f"{s}:{name}"] = g * grad_scale
-        # the clip's norm is over every rank's gradients (gloo reduces
-        # CPU tensors)
-        dev = microbatches.device \
-            if dist.get_backend(runner.group) == "nccl" else "cpu"
+        return res["loss"] * grad_scale, grads
+
+    def global_norm(grads):
+        """The norm over every rank's gradients (all ranks call it; gloo
+        reduces CPU tensors)."""
+        device = where["device"]
+        dev = device if dist.get_backend(runner.group) == "nccl" else "cpu"
         sq = torch.zeros((), dtype=torch.float32, device=dev)
         for g in grads.values():
-            sq = sq + torch.sum(torch.square(g.float())).to(dev)
+            if g is not None:
+                sq = sq + torch.sum(torch.square(g.float())).to(dev)
         dist.all_reduce(sq, group=runner.group)
-        gnorm = torch.sqrt(sq).to(microbatches.device)
+        return torch.sqrt(sq).to(device)
+
+    def step(stage_params, opt_state, microbatches):
+        named = named_parameters(stage_params)
+        if opt_state is None:
+            opt_state = opt.init(ocfg, named, mask)
+        loss, grads = value_and_grad(stage_params, microbatches)
         _, opt_state, om = opt.update(ocfg, grads, opt_state, named, mask,
-                                      grad_norm=gnorm)
-        loss = res["loss"] * grad_scale
+                                      grad_norm=global_norm(grads))
         return stage_params, opt_state, {"loss": loss, **om}
 
     step.runner = runner
+    step.value_and_grad = value_and_grad
+    step.global_norm = global_norm
+    step.named_parameters = named_parameters
+    step.frozen_mask = mask
     return step
 

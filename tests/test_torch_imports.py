@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch port: importing ``repro_torch`` (every
-submodule, the pipeline slice's, the schedule lint's and the SPMD
-runner's among them) and ``chip_smoke.py`` loads
-neither ``jax`` nor ``repro`` nor ``networkx``,
+submodule, the pipeline slice's, the schedule lint's, the SPMD
+runner's, the checkpoints' and the resilience runtime's among them) and
+``chip_smoke.py`` loads neither ``jax`` nor ``repro`` nor ``networkx``
+nor ``msgpack`` nor ``ml_dtypes``,
 checked in a fresh interpreter because the test worker may already hold
 jax; the port's sources call no library attention or compiler; and
 ``chip_smoke.py`` refuses to run where there is no card."""
@@ -23,7 +24,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro", "networkx"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "networkx",
+                                    "msgpack", "ml_dtypes"))
 print(" ".join(names))
 assert not bad, bad
 """
@@ -42,6 +44,13 @@ PIPELINE_MODULES = (
     "repro_torch.analysis.findings", "repro_torch.analysis.schedlint",
     "repro_torch.parallel.spmd")
 
+#: the runtime's modules (checkpoints, resilience), likewise
+RUNTIME_MODULES = (
+    "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+    "repro_torch.checkpoint._msgpack", "repro_torch.resilience",
+    "repro_torch.resilience.faults", "repro_torch.resilience.monitor",
+    "repro_torch.resilience.manager", "repro_torch.resilience.trainer")
+
 
 def _env():
     env = dict(os.environ)
@@ -55,16 +64,17 @@ def test_port_imports_neither_jax_nor_repro():
                          text=True, timeout=120, env=_env(), cwd=str(ROOT))
     assert res.returncode == 0, res.stdout + res.stderr
     names = res.stdout.split()
-    assert len(names) >= 34
-    assert set(PIPELINE_MODULES) <= set(names), \
-        sorted(set(PIPELINE_MODULES) - set(names))
+    assert len(names) >= 42
+    want = set(PIPELINE_MODULES) | set(RUNTIME_MODULES)
+    assert want <= set(names), sorted(want - set(names))
 
 
 def test_port_sources_call_no_library_attention():
     banned = ("scaled_dot_product_attention", "torch.compile",
               "flex_attention", "cudnn", "flash_attn", "import jax",
               "from jax", "from repro.", "import repro\n",
-              "import networkx", "from networkx")
+              "import networkx", "from networkx", "import msgpack",
+              "from msgpack", "import ml_dtypes", "from ml_dtypes")
     for path in PORT.rglob("*"):
         if path.suffix not in (".py", ".cu", ".cuh"):
             continue

@@ -10,10 +10,11 @@ every step for ``--mllm vlm --reduced`` (also with ``--train-llm``) and
 plan JSON byte for byte, ``--plan`` trains under a saved plan, every
 plan passes the schedule lint gate, a corrupted plan is refused by it
 (and ``--no-lint`` lets it through), ``--spmd`` spawns the plan's 2
-ranks and logs the ``--plan`` replay's losses, and every flag whose
-module is not ported yet raises ``SystemExit`` naming its ROADMAP.md
-item."""
+ranks and logs the ``--plan`` replay's losses, and each of the runtime
+flags (checkpoints, resume, fault plans, the spike threshold) takes
+effect."""
 import json
+import os
 
 import numpy as np
 import pytest
@@ -32,6 +33,18 @@ MLLM_ARGS = ["--mllm", "vlm", "--reduced", "--steps", "3", "--seq", "16",
              "--log-every", "0"]
 LM_ARGS = ["--arch", "qwen3-1.7b", "--reduced", "--steps", "3", "--seq",
            "16", "--batch", "2", "--log-every", "0"]
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread in this process: the suite's workers share the
+    CPU, and the reduced models' many tiny ops wait on each other's
+    threads when every worker runs a full pool."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -95,31 +108,67 @@ def test_plan_for_other_encoders_is_refused(tmp_path):
         ttrain.main(MLLM_ARGS + ["--device", "cpu", "--plan", str(path)])
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--spmd"], None),              # ported: runs (item 16)
-    (["--ckpt-dir", "ck"], "item 17"),
-    (["--resume"], "item 17"),
-    (["--ckpt-every", "5"], "item 17"),
-    (["--keep", "2"], "item 17"),
-    (["--fault-plan", "f.json"], "item 18"),
-    (["--spike-sigma", "4"], "item 18"),
-])
-def test_unported_flags_refuse(extra, item, tmp_path, capsys):
+@pytest.mark.parametrize("flag", ["spmd", "ckpt-dir", "resume", "ckpt-every",
+                                  "keep", "fault-plan", "spike-sigma"])
+def test_runtime_flags_take_effect(flag, tmp_path, capsys, monkeypatch):
+    """The JAX launcher's runtime flags, each run and its effect seen:
+    --spmd trains the plan's ranks, --ckpt-dir writes a checkpoint root,
+    --resume continues a crashed run with its uninterrupted loss,
+    --ckpt-every and --keep set the cadence and the retention,
+    --fault-plan fires its fault, and --spike-sigma reaches the
+    monitor's config."""
+    from repro_torch.resilience import (CheckpointManager, CrashInjected,
+                                        Fault, FaultPlan)
     args = MLLM_ARGS + ["--device", "cpu"]
-    if item is None:
-        # --spmd is ported: the plan's 2 pipeline ranks, spawned, log the
-        # losses of the one-process run under the same plan
+    root = str(tmp_path / "ck")
+    ck = args + ["--ckpt-dir", root]
+    if flag == "spmd":
+        # the plan's 2 pipeline ranks, spawned, log the losses of the
+        # one-process run under the same plan
         path = tmp_path / "plan.json"
         replay = ttrain.main(args + ["--plan-out", str(path)])
-        got = ttrain.main(args + ["--plan", str(path)] + extra)
+        got = ttrain.main(args + ["--plan", str(path), "--spmd"])
         out = capsys.readouterr().out
         assert "spawning 2 rank processes (gloo" in out
         assert got["params"] == replay["params"]
         np.testing.assert_allclose(got["losses"], replay["losses"],
                                    rtol=LOSS_RTOL)
-        return
-    with pytest.raises(SystemExit, match=item):
-        ttrain.main(args + extra)
+    elif flag == "ckpt-dir":
+        res = ttrain.main(ck)
+        assert sorted(os.listdir(root)) == ["LATEST", "events.jsonl",
+                                            "step_00000003"]
+        assert len(res["losses"]) == 3
+    elif flag == "resume":
+        want = ttrain.main(args)["losses"]
+        plan = str(tmp_path / "crash.json")
+        FaultPlan.make([Fault("crash", 2)]).save(plan)
+        with pytest.raises(CrashInjected, match="crash injected at step 2"):
+            ttrain.main(ck + ["--ckpt-every", "2", "--fault-plan", plan])
+        res = ttrain.main(ck + ["--resume"])
+        assert res["resilience"]["losses"] == {2: want[2]}
+    elif flag in ("ckpt-every", "keep"):
+        keep = ["--keep", "2"] if flag == "keep" else []
+        ttrain.main(ck + ["--ckpt-every", "1"] + keep)
+        assert CheckpointManager(root).steps() == \
+            ([2, 3] if keep else [1, 2, 3])
+    elif flag == "fault-plan":
+        plan = str(tmp_path / "nan.json")
+        FaultPlan.make([Fault("nan_grads", 1)]).save(plan)
+        res = ttrain.main(args + ["--fault-plan", plan])["resilience"]
+        assert res["skipped"] == 1 and sorted(res["losses"]) == [0, 2]
+        assert res["fired_faults"] == [{"kind": "nan_grads", "step": 1,
+                                        "arg": 0}]
+    else:
+        from repro_torch import resilience
+        seen = []
+        real = resilience.MonitorConfig
+
+        def config(**kw):
+            seen.append(real(**kw))
+            return seen[-1]
+        monkeypatch.setattr(resilience, "MonitorConfig", config)
+        ttrain.main(args + ["--spike-sigma", "4"])
+        assert [c.spike_sigma for c in seen] == [4.0]
 
 
 def test_lint_gate_refuses_a_corrupted_plan(tmp_path):
