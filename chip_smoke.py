@@ -9,6 +9,7 @@ NVIDIA GPU. Run from the root of the repository:
     python3 chip_smoke.py --phases pp           # phases 1, 5b
     python3 chip_smoke.py --phases pp,spmd      # phases 1, 5b, 5c
     python3 chip_smoke.py --phases resilience   # phases 1, 5d
+    python3 chip_smoke.py --phases dense        # phases 1, 4b
 
 Phases (any failure exits non-zero and prints no result line; the result
 line is printed only when every phase ran and passed):
@@ -29,7 +30,10 @@ line is printed only when every phase ran and passed):
    - K1 (BAM forward) on q [1,T,32,128], k/v [1,T,8,128], T in {512,
      2000} causal and T = 2000 multimodal, bf16 and f32, plus a
      softcap-50/window-256 case and a bf16 head_dim-64 case (T = 2000
-     multimodal);
+     multimodal); and at qwen2-vl-7b's heads, q [1,2048,28,128] over k/v
+     [1,2048,4,128] (a GQA group of 7), bf16 and f32, on the bits
+     ``vlm.make_vlm_batch`` gives a 1024-patch image between two text
+     runs;
    - K2 (dQ) and K3 (dK/dV) at the train path's shapes: q [1,1600,32,128],
      k/v [1,1600,8,128] with the vlm layout's bits (512 text, 576 image,
      512 text), bf16 and f32, a softcap-50/window-256 case and a ragged
@@ -88,6 +92,24 @@ line is printed only when every phase ran and passed):
    and the plain engine emit identical greedy tokens, and the request
    prefilled in the plan's layout emits its plan-less tokens; at bf16
    full depth, the two paths' last-row prefill logits are compared.
+4b. ``dense``: qwen2-vl-7b (``configs/qwen2_vl_7b.py``, family vlm) at
+   full width and depth in bf16 (7.6 B parameters), random weights from a
+   seeded generator. ``training.steps.make_prefill`` over B = 2 rows of
+   T = 2048 (512 text, a 1024-patch image of grid 1 x 32 x 32, 512 text;
+   ``vlm.make_vlm_batch``'s bits and M-RoPE pos3) with
+   attn_impl="bam_kernel" (counts zeroed just before and read just
+   after: K1 exactly 28 launches, one per layer, and no other kernel),
+   "xla", and "xla" with ``attn_q_chunk`` 512: ms and peak memory of
+   each; the chunked logits within ``compare`` of the unchunked; the
+   kernel path's last-position logits no further from the f32 forward
+   of the same weights than ``DENSE_BF16_FACTOR`` times the plain
+   path's. Then ``make_serve_step`` on the strip cache (B = 2, a 64-token
+   text prompt fed token by token, then 32 greedy tokens, pos3
+   carried): ms per tick, the cache's bytes, no kernel launched (K4
+   and K1 0). Then f32 at 2 layers, full width: kernel prefill against
+   plain, chunked against unchunked, and ``decode_step`` token by token
+   against the forward on a 64-token text prompt, each within 1e-4 of
+   max |logit|.
 5. Train: 3 steps of ``make_mllm_train_step`` on
    ``build_paper_mllm("vlm", llm_size="M", vision_size="S")`` (a frozen
    40-layer EVA-CLIP-S-width encoder, a trainable linear projector, the
@@ -225,7 +247,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("kernels", "compact", "serving", "train", "pp", "spmd",
+PHASES = ("kernels", "compact", "serving", "dense", "train", "pp", "spmd",
           "resilience", "cp")
 KERNEL_KEYS = ("K1", "K1s", "K1c", "K2", "K2c", "K3", "K3c", "K4")
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
@@ -444,6 +466,75 @@ def k1_cases(smoke: Smoke):
             "worst_err_over_tol": ratio, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
             "shape": f"q[1,{T},{H},{hd}] kv[1,{T},{Hkv},{hd}] {dt} {kind}"}
+
+
+def vlm_image_bits(torch, T: int, d_model: int = 8):
+    """(bits, positions) [1, T] on the card that ``vlm.make_vlm_batch``
+    gives a 1024-patch image (grid 1 x 32 x 32) between two text runs of
+    (T - 1024) / 2 tokens."""
+    from repro_torch.models import vlm
+    tokens = torch.zeros((1, T), dtype=torch.int32, device="cuda")
+    patches = torch.zeros((1, 1024, d_model), device="cuda")
+    b = vlm.make_vlm_batch(tokens, patches, (T - 1024) // 2, (1, 32, 32),
+                           d_model)
+    return b["bits"].contiguous(), b["positions"].contiguous()
+
+
+def k1_gqa7_cases(smoke: Smoke):
+    """K1 at qwen2-vl-7b's head layout, 28 query heads over 4 KV heads (a
+    group of 7), q [1,2048,28,128], k/v [1,2048,4,128], bf16 and f32, on
+    the bits of a 1024-patch image between two text runs: within
+    ``compare`` of its plain version, with times, bound and SDPA beside
+    it (bf16)."""
+    torch = smoke.torch
+    import torch.nn.functional as F
+    from repro_torch.core import bam
+    from repro_torch.kernels.bam_attention import (
+        bam_flash_attention, bam_flash_attention_torch)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    T, H, Hkv, hd = 2048, 28, 4, 128
+    bits, pos = vlm_image_bits(torch, T)
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        q = torch.randn((1, T, H, hd), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((1, T, Hkv, hd), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((1, T, Hkv, hd), generator=gen, device="cuda").to(dtype)
+        args = (q, k, v, bits, bits, pos, pos)
+        kw = dict(return_mode="residual")
+        out, lse = bam_flash_attention(*args, **kw)
+        torch.cuda.synchronize()
+        out_p, lse_p = bam_flash_attention_torch(*args, **kw)
+        err, ratio = compare(out, out_p, dt)
+        err_lse = float((lse - lse_p).abs().max())
+        name = f"K1 28/4 heads (group 7) T={T} vlm image {dt}"
+        smoke.check(ratio <= 1.0 and err_lse <= 1e-3,
+                    f"{name}: max_abs_err out {err:.3e} (tol {TOL_TEXT[dt]}; "
+                    f"worst |d|/tol {ratio:.3f}), lse {err_lse:.3e} "
+                    f"(tol 1e-3)")
+        if dt != "bfloat16":
+            continue
+        ms = cuda_ms(torch, lambda: bam_flash_attention(*args, **kw))
+        plain_ms = cuda_ms(torch, lambda: bam_flash_attention_torch(*args, **kw),
+                           iters=3)
+        mask = bam.allowed_mask(bits, bits, pos, pos)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        lib_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True))
+        pairs = float(mask.sum())
+        flops = 4.0 * hd * H * pairs
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (q, k, v, out, lse, bits, bits, pos, pos))
+        b_ms, b_by = bound(flops, nbytes, dt)
+        print(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, SDPA "
+              f"with bool mask {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); mask density {pairs / T / T:.3f}, "
+              f"{flops / ms / 1e9:.1f} TFLOP/s [{smoke.smi}]", flush=True)
+        smoke.kernels["K1"]["gqa7"] = {
+            "shape": f"q[1,{T},{H},{hd}] kv[1,{T},{Hkv},{hd}] {dt} vlm image",
+            "max_abs_err": err, "worst_err_over_tol": ratio, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": lib_ms}
 
 
 def vlm_segments(T: int):
@@ -1684,6 +1775,241 @@ def parity_phase(smoke: Smoke, model, cfg, reqs):
           flush=True)
     # random weights give near-ties, so agreement is printed, not required
     smoke.check(finite, "bf16 full-depth prefill logits are finite")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the dense family (qwen2-vl-7b prefill and strip-cache decode)
+# ---------------------------------------------------------------------------
+
+DENSE_B, DENSE_T, DENSE_PROMPT, DENSE_NEW = 2, 2048, 64, 32
+DENSE_CHUNK = 512
+# bf16 through 28 layers: the kernel path's last-position logits may be
+# no further from the f32 forward of the same bf16 weights than the plain
+# bf16 path's are, up to this factor
+DENSE_BF16_FACTOR = 2.0
+DENSE_F32_REL = 1e-4          # f32: |d| <= 1e-4 max |logit|
+
+
+def dense_batch(torch, cfg, gen, dtype):
+    """B = 2 rows of T = 2048: text, a 1024-patch image (grid 1 x 32 x
+    32, random patch embeddings of the embedding table's scale), text;
+    ``vlm.make_vlm_batch``'s bits, positions and M-RoPE pos3."""
+    from repro_torch.models import vlm
+    tokens = torch.randint(0, cfg.vocab_size, (DENSE_B, DENSE_T),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    patches = (torch.randn((DENSE_B, 1024, cfg.d_model), generator=gen,
+                           device="cuda") * 0.02).to(dtype)
+    return vlm.make_vlm_batch(tokens, patches, (DENSE_T - 1024) // 2,
+                              (1, 32, 32), cfg.d_model)
+
+
+def text_feeds(torch, tokens):
+    """One-token decode batches of a text prompt [B, n]: positions and
+    pos3 (three equal streams) carried."""
+    B = tokens.shape[0]
+    for t in range(tokens.shape[1]):
+        p = torch.full((B, 1), t, dtype=torch.int32, device="cuda")
+        yield {"tokens": tokens[:, t:t + 1], "positions": p,
+               "pos3": p[None].expand(3, B, 1)}
+
+
+def rel_err(a, b):
+    """max |a - b| / max |b| in f32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def dense_phase(smoke: Smoke):
+    """qwen2-vl-7b at full width and depth, bf16, weights from a seeded
+    generator: the prefill (K1 on every layer), the plain and q-chunked
+    prefills, their logits against an f32 forward of the same weights;
+    f32 parity at 2 layers; the strip-cache serve loop."""
+    torch = smoke.torch
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import api
+    from repro_torch.training import steps
+
+    cfg = get_config("qwen2-vl-7b").replace(attn_impl="bam_kernel")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = api.init(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.param_count() / 1e9:.3f} B parameters ("
+          f"{cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads of {cfg.head_dim}, M-RoPE "
+          f"{cfg.mm.mrope_sections}), bf16, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    batch = dense_batch(torch, cfg, gen, torch.bfloat16)
+
+    variants = {"kernel": cfg, "plain": cfg.replace(attn_impl="xla"),
+                f"plain q-chunked {DENSE_CHUNK}": cfg.replace(
+                    attn_impl="xla", attn_q_chunk=DENSE_CHUNK)}
+    logits, times = {}, {}
+    for name, c in variants.items():
+        prefill = steps.make_prefill(c)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        logits[name] = prefill(model, batch)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if name == "kernel":
+            smoke.launches["dense"] = dict(counts)
+            others = {k: n for k, n in counts.items() if k != "K1" and n}
+            smoke.check(counts["K1"] == cfg.num_layers and not others,
+                        f"K1 launched {counts['K1']} times in one bf16 "
+                        f"prefill = {cfg.num_layers} layers; other kernels "
+                        f"{others or 0}")
+        ms = cuda_ms(torch, lambda: prefill(model, batch), iters=3, warmup=1)
+        times[name] = (ms, peak)
+    n_text = (DENSE_T - 1024) // 2
+    print(f"{cfg.name} prefill through make_prefill, B {DENSE_B} x T "
+          f"{DENSE_T} ({n_text} text, 1024 image patches, {n_text} text): "
+          + ", ".join(f"{n} {ms:.1f} ms (peak {pk:.2f} GiB)"
+                      for n, (ms, pk) in times.items())
+          + f" [{smoke.smi}]", flush=True)
+    lk, lx = logits["kernel"], logits["plain"]
+    lc = logits[f"plain q-chunked {DENSE_CHUNK}"]
+    smoke.check(all(bool(torch.isfinite(v).all()) for v in logits.values())
+                and lk.shape == (DENSE_B, 1, cfg.vocab_size),
+                f"bf16 prefill logits finite, shape {tuple(lk.shape)}")
+    err, ratio = compare(lc, lx, "bfloat16")
+    smoke.check(ratio <= 1.0, f"bf16 q-chunked ({DENSE_CHUNK}) plain "
+                f"prefill vs unchunked: max |d| {err:.3e}, worst |d|/tol "
+                f"{ratio:.3f} ({TOL_TEXT['bfloat16']})")
+
+    # the f32 forward of the same (bf16-valued) weights as the yardstick
+    m32 = api.init(cfg.replace(dtype="float32"), device="meta").to_empty(
+        device="cuda")
+    m32.load_state_dict(model.state_dict())
+    b32 = dict(batch, inputs_embeds=batch["inputs_embeds"].float())
+    l32 = steps.make_prefill(cfg.replace(dtype="float32", attn_impl="xla"))(
+        m32, b32)
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    ek, ex = (float((v.float() - l32).abs().max()) for v in (lk, lx))
+    agree = int((lk[:, -1].argmax(-1) == lx[:, -1].argmax(-1)).sum())
+    smoke.check(ek <= DENSE_BF16_FACTOR * ex,
+                f"bf16 full depth, last-position logits against the f32 "
+                f"forward of the same weights: kernel max |d| {ek:.4f}, "
+                f"plain {ex:.4f} (kernel <= {DENSE_BF16_FACTOR} x plain); "
+                f"kernel vs plain {float((lk - lx).abs().max()):.4f}, "
+                f"f32 logits max |l| {float(l32.abs().max()):.3f}; argmax "
+                f"agreement {agree}/{DENSE_B}")
+    smoke.dense = {"prefill": {n: {"ms": ms, "peak_gib": pk}
+                               for n, (ms, pk) in times.items()},
+                   "bf16_err_kernel": ek, "bf16_err_plain": ex}
+
+    dense_serve(smoke, model, cfg)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    dense_f32_parity(smoke, cfg)
+
+
+def dense_serve(smoke: Smoke, model, cfg):
+    """``make_serve_step`` on the strip cache: a 64-token text prompt
+    fed token by token, then 32 greedy tokens, B = 2, pos3 carried. Launch
+    counts zeroed just before and read just after: no kernel launches
+    (the strip-cache decode is the plain path, as in JAX)."""
+    torch = smoke.torch
+    from repro_torch.models import api
+    from repro_torch.training import steps
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (DENSE_B, DENSE_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    cache = api.init_cache(cfg, DENSE_B, DENSE_PROMPT + DENSE_NEW,
+                           device="cuda")
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    serve = steps.make_serve_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    for b in text_feeds(torch, prompt):
+        tok, cache = serve(model, cache, b)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = []
+    for t in range(DENSE_PROMPT, DENSE_PROMPT + DENSE_NEW):
+        p = torch.full((DENSE_B, 1), t, dtype=torch.int32, device="cuda")
+        out.append(tok)
+        tok, cache = serve(model, cache, {"tokens": tok[:, None],
+                                          "positions": p,
+                                          "pos3": p[None].expand(3, DENSE_B,
+                                                                 1)})
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    gen_toks = torch.stack(out, 1)
+    prompt_ms = (t1 - t0) * 1e3 / DENSE_PROMPT
+    tick_ms = (t2 - t1) * 1e3 / DENSE_NEW
+    print(f"{cfg.name} strip-cache serve, B {DENSE_B}, cache "
+          f"{DENSE_PROMPT + DENSE_NEW} slots ({cache_bytes} bytes): prompt "
+          f"{prompt_ms:.2f} ms/tick over {DENSE_PROMPT}, greedy "
+          f"{tick_ms:.2f} ms/tick over {DENSE_NEW}, peak memory "
+          f"{peak:.2f} GiB; launches {counts} [{smoke.smi}]", flush=True)
+    smoke.check(not any(counts.values()),
+                f"no kernel launched on the strip-cache decode path "
+                f"(K1 {counts['K1']}, K4 {counts['K4']})")
+    smoke.check(gen_toks.shape == (DENSE_B, DENSE_NEW)
+                and bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size))
+                         .all()),
+                f"serve loop generated {DENSE_NEW} in-vocab tokens a row")
+    smoke.dense["serve"] = {"prompt_ms_per_tick": prompt_ms,
+                            "ms_per_tick": tick_ms, "cache_bytes": cache_bytes,
+                            "peak_gib": peak}
+
+
+def dense_f32_parity(smoke: Smoke, cfg):
+    """f32, 2 layers, full width: the kernel prefill against the plain
+    one, the q-chunked against the unchunked, and decode_step fed a
+    64-token text prompt token by token against the forward, each within
+    ``DENSE_F32_REL`` of max |logit|."""
+    torch = smoke.torch
+    from repro_torch.models import api
+    from repro_torch.training import steps
+
+    c32 = cfg.replace(num_layers=2, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    m32 = api.init(c32, device="cuda", generator=gen)
+    batch = dense_batch(torch, c32, gen, torch.float32)
+    zero_counts()
+    lk = steps.make_prefill(c32)(m32, batch)
+    k1 = kernel_counts()["K1"]
+    lx = steps.make_prefill(c32.replace(attn_impl="xla"))(m32, batch)
+    lc = steps.make_prefill(c32.replace(attn_impl="xla",
+                                        attn_q_chunk=DENSE_CHUNK))(m32, batch)
+    for what, got, want in (("kernel vs plain", lk, lx),
+                            (f"q-chunked ({DENSE_CHUNK}) vs unchunked", lc,
+                             lx)):
+        r = rel_err(got, want)
+        smoke.check(r <= DENSE_F32_REL and k1 == c32.num_layers,
+                    f"f32 {cfg.name} 2 layers, full width, T {DENSE_T}: "
+                    f"{what} last-position logits max |d| / max |l| "
+                    f"{r:.2e} (tol {DENSE_F32_REL}); K1 {k1} launches")
+
+    prompt = torch.randint(0, c32.vocab_size, (DENSE_B, DENSE_PROMPT),
+                           generator=gen, device="cuda", dtype=torch.int32)
+    pos = torch.arange(DENSE_PROMPT, dtype=torch.int32,
+                       device="cuda")[None].expand(DENSE_B, DENSE_PROMPT)
+    with torch.no_grad():
+        full, _ = api.forward(m32, c32, {"tokens": prompt, "positions": pos,
+                                         "pos3": pos[None].expand(3, -1, -1)})
+        cache = api.init_cache(c32, DENSE_B, DENSE_PROMPT, device="cuda")
+        got = []
+        for b in text_feeds(torch, prompt):
+            logits, cache = api.decode_step(m32, c32, cache, b)
+            got.append(logits[:, 0])
+    r = rel_err(torch.stack(got, 1), full)
+    smoke.check(r <= DENSE_F32_REL,
+                f"f32 {cfg.name} 2 layers: decode_step over a "
+                f"{DENSE_PROMPT}-token text prompt vs the forward, max |d| / "
+                f"max |l| {r:.2e} (tol {DENSE_F32_REL})")
 
 
 # ---------------------------------------------------------------------------
@@ -3216,6 +3542,7 @@ def main() -> int:
     k4_build_check(smoke, _build)
     if "kernels" in phases:
         k1_cases(smoke)
+        k1_gqa7_cases(smoke)
         bwd_cases(smoke)
         bwd_more_cases(smoke)
         k4_cases(smoke)
@@ -3232,6 +3559,10 @@ def main() -> int:
         decode_profile(smoke, model, cfg, reqs)
         parity_phase(smoke, model, cfg, reqs)
         del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "dense" in phases:
+        dense_phase(smoke)
         gc.collect()
         torch.cuda.empty_cache()
     if "train" in phases:
@@ -3265,7 +3596,7 @@ def main() -> int:
               f"for a partial run")
         return 0
     # launches: each kernel's count on each path it is on (serving: K1,
-    # K4; train and pp: K1, K2, K3; cp: K1 stats, K2, K3; compact: K1c,
+    # K4; dense: K1; train and pp: K1, K2, K3; cp: K1 stats, K2, K3; compact: K1c,
     # K2c, K3c); "launches" is the train path's for K1-K3, the CP path's
     # for K1 stats, the compact path's for K1c-K3c
     paths = smoke.launches

@@ -12,7 +12,16 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MultimodalConfig:
+    """Multimodal (vlm) composition extras; the frontend is stubbed."""
+
+    num_patches: int = 256        # image patch tokens fed to the backbone
+    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE: (t, h, w) dims
+    modality_name: str = "vision"
 
 
 @dataclass(frozen=True)
@@ -41,13 +50,14 @@ class ModelConfig:
     post_block_norm: bool = False
     embed_scale: bool = False
 
-    # family extras of the JAX package's other families (sub-config
-    # objects there); the port's dense family reads only mm.mrope_sections
+    # family extras: the other families' sub-configs are objects in the
+    # JAX package and unported here (ROADMAP.md item 20); the dense and
+    # vlm families read only mm.mrope_sections
     moe: Any = None
     ssm: Any = None
     xlstm: Any = None
     encdec: Any = None
-    mm: Any = None
+    mm: Optional[MultimodalConfig] = None
     attn_layer_period: int = 0
     shared_attn: bool = False
 
@@ -82,7 +92,8 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Parameters of the dense family (the only one the port runs)."""
+        """Parameters of the dense and vlm families (the ones the port
+        runs), by the reference's formula."""
         d, L, V = self.d_model, self.num_layers, self.vocab_size
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         ff = 3 * d * self.d_ff if self.act == "silu" else 2 * d * self.d_ff
@@ -110,4 +121,5 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
 
 def _ensure_imported() -> None:
     # config modules register themselves on import
-    from repro_torch.configs import qwen3_1_7b  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        gemma2_9b, qwen2_5_14b, qwen2_vl_7b, qwen3_1_7b, starcoder2_7b)

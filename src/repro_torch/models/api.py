@@ -1,16 +1,18 @@
 """Uniform model API — dispatch on ``cfg.family`` (port of
-``repro.models.api``). The port has the dense family only; the others
-are ROADMAP.md queue 1 item 20 ("Other backbones").
+``repro.models.api``). The port has the dense and vlm families; the
+others are ROADMAP.md queue 1 item 20 ("Other backbones").
 
-    init(cfg, device=, generator=)   -> model
-    forward(model, cfg, batch)       -> (logits, aux)
+    init(cfg, device=, generator=)                     -> model
+    forward(model, cfg, batch)                         -> (logits, aux)
+    init_cache(cfg, batch_size, max_len, dtype, device=) -> cache
+    decode_step(model, cfg, cache, batch)              -> (logits, cache)
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import transformer, vlm
 
-_FAMILIES = {"dense": transformer}
+_FAMILIES = {"dense": transformer, "vlm": vlm}
 
 
 def module_for(cfg: ModelConfig):
@@ -27,3 +29,13 @@ def init(cfg: ModelConfig, *, device="cuda", generator=None):
 
 def forward(model, cfg: ModelConfig, batch):
     return module_for(cfg).forward(model, cfg, batch)
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, dtype=None,
+               *, device="cuda"):
+    return module_for(cfg).init_cache(cfg, batch_size, max_len, dtype,
+                                      device=device)
+
+
+def decode_step(model, cfg: ModelConfig, cache, batch):
+    return module_for(cfg).decode_step(model, cfg, cache, batch)

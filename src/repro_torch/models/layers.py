@@ -7,9 +7,12 @@ The apply functions take those modules and plain tensors.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.bam import repeat_kv
@@ -72,7 +75,7 @@ def apply_norm(cfg: ModelConfig, p: Norm, x):
 
 
 # ---------------------------------------------------------------------------
-# RoPE (split-half form)
+# RoPE (split-half form) and M-RoPE (qwen2-vl)
 # ---------------------------------------------------------------------------
 
 def rope_angles(pos, head_dim: int, theta: float):
@@ -88,6 +91,29 @@ def apply_rope(x, pos, theta: float):
     """x: [B, T, H, hd]; pos: [B, T] -> rotated x, computed in f32."""
     cos, sin = rope_angles(pos, x.shape[-1], theta)
     cos, sin = cos[..., None, :], sin[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x, pos3, sections, theta: float):
+    """Multimodal RoPE (qwen2-vl, arXiv:2409.12191). x: [B,T,H,hd];
+    pos3: [3,B,T] (temporal, height, width) position ids. ``sections``
+    partitions the half-dim into (t, h, w) bands; each band rotates by its
+    own position stream. For text tokens the three ids are equal, which
+    reduces to ``apply_rope``."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} must sum to "
+                         f"head_dim // 2 = {half}")
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=x.device) / half))
+    sec_ids = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))              # [half]
+    pos_sel = pos3.float()[sec_ids]                           # [half,B,T]
+    ang = pos_sel.movedim(0, -1) * freqs                      # [B,T,half]
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -109,6 +135,40 @@ def sdpa(q, k, v, mask, *, softcap: float = 0.0):
     any_ok = mask.any(dim=-1, keepdim=True)
     probs = torch.where(any_ok, probs, torch.zeros_like(probs)).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def sdpa_q_chunked(q, k, v, mask_fn, chunk: int, *, softcap: float = 0.0):
+    """``sdpa`` over blocks of ``chunk`` queries: each block's mask comes
+    from ``mask_fn(start, size)``, so neither the [Tq,Tk] logits nor the
+    [Tq,Tk] mask ever exist at once (the prefill memory lever). Under
+    autograd each block is rematerialised (non-reentrant
+    ``torch.utils.checkpoint``), as ``jax.checkpoint`` per block in the
+    JAX package. q/k/v: [B,T,H,hd], k/v already GQA-expanded."""
+    tq = q.shape[1]
+    if tq % chunk:
+        raise ValueError(f"Tq={tq} is not a multiple of chunk={chunk}")
+
+    def block(qs, k, v, mask):
+        return sdpa(qs, k, v, mask, softcap=softcap)
+
+    outs = []
+    for start in range(0, tq, chunk):
+        qs = q[:, start:start + chunk]
+        mask = mask_fn(start, chunk)
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(block, qs, k, v, mask,
+                                   use_reentrant=False))
+        else:
+            outs.append(block(qs, k, v, mask))
+    return torch.cat(outs, dim=1)
+
+
+def causal_mask(q_pos, kv_pos, window: int = 0):
+    """q_pos: [B,Tq], kv_pos: [B,Tk] -> [B,1,Tq,Tk] bool."""
+    m = kv_pos[:, None, :] <= q_pos[:, :, None]
+    if window:
+        m &= (q_pos[:, :, None] - kv_pos[:, None, :]) < window
+    return m[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -149,11 +209,19 @@ def attn_project_qkv(p: Attention, cfg: ModelConfig, x_q, x_kv):
     return q, k, v
 
 
-def run_attention(p: Attention, cfg: ModelConfig, x, *, q_pos, mask_fn,
-                  window: int = 0, bits=None, rope: bool = True):
+def run_attention(p: Attention, cfg: ModelConfig, x, *, q_pos, mask=None,
+                  mask_fn=None, kv_pos=None, pos3=None, window: int = 0,
+                  bits=None, rope: bool = True, kv_override=None):
     """Self-attention block over x [B,T,d]. Returns (out [B,T,d], (k, v))
     with k/v the projected (and, with ``rope``, roped) [B,T,Hkv,hd] the
-    serving prefill keeps.
+    serving prefill keeps, or the layer's cache after ``kv_override``.
+
+    Fresh K rotates by the query positions, pads included: by M-RoPE
+    over ``pos3`` [3,B,T] when it is given and ``cfg.mm`` has sections,
+    else by RoPE over ``q_pos``. Cached keys were roped when inserted;
+    ``kv_pos`` only masks them. ``kv_override(k, v)`` (the decode path)
+    returns the keys and values to attend instead: the cache with the
+    fresh ones written in.
 
     With ``bits`` given and ``cfg.cp_mesh`` set, attention is context
     parallel (``core.context_parallel.cp_attention`` over the process
@@ -162,36 +230,51 @@ def run_attention(p: Attention, cfg: ModelConfig, x, *, q_pos, mask_fn,
     plan layout, with its positions and bits. Else, with ``bits`` and
     ``cfg.attn_impl == "bam_kernel"``, attention runs through the BAM op
     (K1 forward, K2/K3 backward). ``window`` is the static sliding window
-    of both. Otherwise the plain masked ``sdpa`` with ``mask_fn()``'s
-    mask, broadcastable to [B,1,T,T] (built only on that path; the
-    encoders pass an all-true one). Fresh K rotates by the query
-    positions, pads included."""
+    of both and of the causal mask built when neither ``mask`` nor
+    ``mask_fn`` is given. Otherwise the plain masked ``sdpa``, over
+    blocks of ``cfg.attn_q_chunk`` queries when ``mask_fn(start, size)``
+    is given and the chunk divides and is shorter than T, else with
+    ``mask`` or ``mask_fn(0, T)``, broadcastable to [B,1,T,Tk]."""
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl={cfg.attn_impl!r}; the port has "
                          f"{ATTN_IMPLS} (bam_interpret is JAX-only)")
-    if cfg.mm is not None and cfg.mm.mrope_sections:
-        raise NotImplementedError("M-RoPE is not ported yet (ROADMAP.md)")
-    if cfg.attn_q_chunk:
-        raise NotImplementedError(
-            "attn_q_chunk (q-chunked plain attention) is not ported yet")
     b, tq, _ = x.shape
     q, k, v = attn_project_qkv(p, cfg, x, x)
     if rope:
-        q = apply_rope(q, q_pos, cfg.rope_theta)
-        k = apply_rope(k, q_pos, cfg.rope_theta)
-    if cfg.cp_mesh is not None and bits is not None:
+        if pos3 is not None and cfg.mm is not None and cfg.mm.mrope_sections:
+            q = apply_mrope(q, pos3, cfg.mm.mrope_sections, cfg.rope_theta)
+            k = apply_mrope(k, pos3, cfg.mm.mrope_sections, cfg.rope_theta)
+        else:
+            q = apply_rope(q, q_pos, cfg.rope_theta)
+            k = apply_rope(k, q_pos, cfg.rope_theta)
+    if kv_override is not None:
+        k, v = kv_override(k, v)
+    elif cfg.cp_mesh is not None and bits is not None:
         out = cp_attention(
             cfg.cp_mesh, q, k, v, bits, bits, q_pos, q_pos,
             method=cfg.cp_method, softcap=cfg.attn_softcap, window=window,
             impl=cfg.attn_impl)
+        return out.reshape(b, tq, cfg.q_dim) @ p.wo, (k, v)
     elif cfg.attn_impl == "bam_kernel" and bits is not None:
         out = ops.bam_attention(
             q, k, v, bits, bits, q_pos, q_pos, softcap=cfg.attn_softcap,
             window=window, impl="bam_kernel")
+        return out.reshape(b, tq, cfg.q_dim) @ p.wo, (k, v)
+    # n_rep from the actual tensor: a decode cache may hold replicated KV
+    # heads (cfg.decode_kv_replicate)
+    n_rep = cfg.num_heads // k.shape[2]
+    kf, vf = repeat_kv(k, n_rep), repeat_kv(v, n_rep)
+    chunk = cfg.attn_q_chunk
+    if mask_fn is not None and chunk and tq % chunk == 0 and tq > chunk:
+        out = sdpa_q_chunked(q, kf, vf, mask_fn, chunk,
+                             softcap=cfg.attn_softcap)
     else:
-        n_rep = cfg.num_heads // k.shape[2]
-        out = sdpa(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep), mask_fn(),
-                   softcap=cfg.attn_softcap)
+        if mask is None and mask_fn is not None:
+            mask = mask_fn(0, tq)
+        if mask is None:
+            mask = causal_mask(q_pos, q_pos if kv_pos is None else kv_pos,
+                               window)
+        out = sdpa(q, kf, vf, mask, softcap=cfg.attn_softcap)
     return out.reshape(b, tq, cfg.q_dim) @ p.wo, (k, v)
 
 
@@ -220,3 +303,36 @@ def run_mlp(p: MLP, x, act: str):
     else:
         h = _act(up, act)
     return h @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# KV strip cache (one [B, Tmax] strip per layer)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
+                  num_layers: Optional[int] = None):
+    """{k, v: zeros [L, B, Tmax, Hkv, hd]} on ``device``."""
+    L = cfg.num_layers if num_layers is None else num_layers
+    shape = (L, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def cache_update(cache_k, cache_v, k_new, v_new, index: int):
+    """Write [B, Tnew, Hkv, hd] at position ``index`` of one layer's
+    [B, Tmax, Hkv, hd] strips, in place; returns them."""
+    t = k_new.shape[1]
+    cache_k[:, index:index + t] = k_new.to(cache_k.dtype)
+    cache_v[:, index:index + t] = v_new.to(cache_v.dtype)
+    return cache_k, cache_v
+
+
+def cache_update_ragged(cache_k, cache_v, k_new, v_new, index):
+    """Per-row insert for continuous batching: ``index`` is [B] (each
+    request sits at its own ragged cache offset), ``k_new``/``v_new``
+    are one-token [B, 1, Hkv, hd]. In place; returns the strips."""
+    rows = torch.arange(cache_k.shape[0], device=cache_k.device)
+    index = index.long()
+    cache_k[rows, index] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[rows, index] = v_new[:, 0].to(cache_v.dtype)
+    return cache_k, cache_v

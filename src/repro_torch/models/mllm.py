@@ -54,8 +54,8 @@ def encoder_init(cfg: ModelConfig, *, device="cuda",
 def _encoder_block(cfg: ModelConfig, lp: EncoderBlock, pos, x):
     h = L.apply_norm(cfg, lp.ln1, x)
     full = torch.ones((1, 1, 1, 1), dtype=torch.bool, device=x.device)
-    a, _ = L.run_attention(lp.attn, cfg, h, q_pos=pos,
-                           mask_fn=lambda: full, rope=False)
+    a, _ = L.run_attention(lp.attn, cfg, h, q_pos=pos, mask=full,
+                           rope=False)
     x = x + a
     h = L.apply_norm(cfg, lp.ln2, x)
     return x + L.run_mlp(lp.mlp, h, "gelu")

@@ -6,12 +6,20 @@
 as the JAX package's functions take (params, cfg). One set of weights can
 so run under configs that differ only in ``attn_impl``.
 
+Covers (via ModelConfig flags) starcoder2-7b (layernorm, gelu, QKV
+bias), qwen3-1.7b (qk_norm), gemma2-9b (local/global alternation,
+softcaps, post-block norms, tied embeddings, embed scale), qwen2.5-14b
+(QKV bias) and the qwen2-vl-7b language backbone (M-RoPE via cfg.mm,
+``models.vlm``).
+
 batch keys: tokens [B,T] int; positions [B,T] int32; optional bits
 [B,T] int32 (BAM; None => causal); optional inputs_embeds [B,T,d] +
-embed_mask [B,T] bool (multimodal merge).
+embed_mask [B,T] bool (multimodal merge); optional pos3 [3,B,T] int32
+(M-RoPE).
 
-The dense ``decode_step`` (a [B, Tmax] strip cache) is not ported: the
-port serves through the paged cache (``repro_torch.serving``).
+``init_cache`` and ``decode_step`` decode one token a row against a
+[L, B, Tmax] strip cache, as the JAX package's; the paged cache
+(``repro_torch.serving``) is the port's other decode path.
 """
 from __future__ import annotations
 
@@ -85,17 +93,25 @@ def layer_window(cfg: ModelConfig, layer_idx: int) -> int:
     return cfg.sliding_window
 
 
-def _mask_for(batch, window: int):
-    """[B,1,T,T] bool mask; the window constrains text queries only."""
+def _mask_for(batch, window: int, q_slice=None):
+    """[B,1,Tq,T] bool mask; the window constrains text queries only.
+    ``q_slice=(start, size)`` builds just that block of query rows (the
+    q-chunked path); else Tq = T."""
     pos = batch["positions"]
-    win_ok = (pos[:, :, None] - pos[:, None, :]) < window if window \
-        else torch.ones((), dtype=torch.bool, device=pos.device)
     bits = batch.get("bits")
+    q_pos, q_bits = pos, bits
+    if q_slice is not None:
+        start, size = q_slice
+        q_pos = pos[:, start:start + size]
+        if bits is not None:
+            q_bits = bits[:, start:start + size]
+    win_ok = (q_pos[:, :, None] - pos[:, None, :]) < window if window \
+        else torch.ones((), dtype=torch.bool, device=pos.device)
     if bits is not None:
-        m = bam.allowed_mask(bits, bits, pos, pos)
-        q_text = bam.own_modality(bits[:, :, None]) == bam.TEXT
+        m = bam.allowed_mask(q_bits, bits, q_pos, pos)
+        q_text = bam.own_modality(q_bits[:, :, None]) == bam.TEXT
         return (m & (win_ok | ~q_text))[:, None]
-    m = pos[:, None, :] <= pos[:, :, None]
+    m = pos[:, None, :] <= q_pos[:, :, None]
     return (m & win_ok)[:, None]
 
 
@@ -120,8 +136,8 @@ def _block(cfg: ModelConfig, p: Block, x, batch, layer_idx: int):
     h = L.apply_norm(cfg, p.ln1, x)
     attn_out, kv = L.run_attention(
         p.attn, cfg, h, q_pos=batch["positions"],
-        mask_fn=lambda: _mask_for(batch, window),
-        bits=kernel_bits,
+        mask_fn=lambda start, size: _mask_for(batch, window, (start, size)),
+        pos3=batch.get("pos3"), bits=kernel_bits,
         window=cfg.sliding_window if kernel_bits is not None else 0)
     if cfg.post_block_norm:
         attn_out = L.apply_norm(cfg, p.post_ln1, attn_out)
@@ -197,3 +213,74 @@ def _cache_cfg(cfg: ModelConfig) -> ModelConfig:
         return cfg.replace(num_kv_heads=cfg.decode_kv_replicate,
                            decode_kv_replicate=0)
     return cfg
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
+               device="cuda"):
+    """Empty strip cache on ``device``: k/v [L, B, Tmax, Hkv, hd] (Hkv
+    widened by ``decode_kv_replicate``) in ``dtype`` (default cfg's),
+    bits [B, Tmax] int32."""
+    dev = resolve_device(device)
+    dtype = torch_dtype(cfg) if dtype is None else dtype
+    c = L.init_kv_cache(_cache_cfg(cfg), batch, max_len, dtype, dev)
+    c["bits"] = torch.zeros((batch, max_len), dtype=torch.int32, device=dev)
+    return c
+
+
+def decode_step(model: TransformerLM, cfg: ModelConfig, cache, batch):
+    """One token a row at ragged offsets. batch: tokens [B,1], positions
+    [B,1] (= each row's cache index), optional bits [B,1] (text by
+    default) and pos3 [3,B,1]. cache: {k, v: [L,B,Tmax,Hkv,hd], bits:
+    [B,Tmax]}. Each row writes its new K/V at its own index and attends
+    the cache below it and itself, under each layer's window. Updates
+    the cache's tensors in place (the JAX function returns a new cache)
+    and returns (logits [B,1,V], cache)."""
+    B = batch["tokens"].shape[0]
+    Tmax = cache["k"].shape[2]
+    pos = batch["positions"]
+    cur = pos[:, 0].long()
+    x = embed_tokens(model, cfg, batch)
+    kv_pos = torch.arange(Tmax, dtype=torch.int32,
+                          device=pos.device)[None].expand(B, Tmax)
+    q_bits = batch.get("bits")
+    if q_bits is None:
+        q_bits = torch.full((B, 1), bam.text_token(), dtype=torch.int32,
+                            device=pos.device)
+    # below cur: the cache's bits; at cur: the query's; above: none
+    cache_bits = torch.where(
+        kv_pos < cur[:, None], cache["bits"],
+        torch.where(kv_pos == cur[:, None], q_bits.expand(B, Tmax),
+                    torch.zeros_like(cache["bits"])))
+    allowed = bam.allowed_mask(q_bits, cache_bits, pos, kv_pos)
+    masks = {}
+    for i, lp in enumerate(model.layers):
+        window = layer_window(cfg, i)
+        if window not in masks:
+            win_ok = (pos[:, :, None] - kv_pos[:, None, :]) < window \
+                if window else True
+            masks[window] = (allowed & win_ok)[:, None]
+
+        def kv_override(k, v, i=i):
+            rep = cfg.decode_kv_replicate
+            if rep > k.shape[2]:
+                k = bam.repeat_kv(k, rep // k.shape[2])
+                v = bam.repeat_kv(v, rep // v.shape[2])
+            return L.cache_update_ragged(cache["k"][i], cache["v"][i], k, v,
+                                         cur)
+
+        h = L.apply_norm(cfg, lp.ln1, x)
+        attn_out, _ = L.run_attention(
+            lp.attn, cfg, h, q_pos=pos, kv_pos=kv_pos, mask=masks[window],
+            pos3=batch.get("pos3"), kv_override=kv_override)
+        if cfg.post_block_norm:
+            attn_out = L.apply_norm(cfg, lp.post_ln1, attn_out)
+        x = x + attn_out
+        h = L.apply_norm(cfg, lp.ln2, x)
+        mlp_out = _default_ffn(lp, h, cfg)
+        if cfg.post_block_norm:
+            mlp_out = L.apply_norm(cfg, lp.post_ln2, mlp_out)
+        x = x + mlp_out
+    h = L.apply_norm(cfg, model.final_ln, x)
+    logits = unembed(model, cfg, h)
+    cache["bits"][torch.arange(B, device=pos.device), cur] = q_bits[:, 0]
+    return logits, cache

@@ -25,6 +25,11 @@ compiled wave program through ``parallel.spmd``'s runner and applies
 AdamW to this rank's stages; its gradient pass, norm and parameters are
 also exposed on their own, for the guarded step.
 
+``make_prefill(cfg)`` -> ``prefill(model, batch)``, the last position's
+logits, and ``make_serve_step(cfg)`` -> ``serve_step(model, cache,
+batch)``, one greedy token a row on the strip cache
+(``models.api.decode_step``); both run without autograd.
+
 A step updates the parameters in place and returns
 ``(params, opt_state, metrics)`` like the JAX step; metrics hold 0-dim
 tensors (read them with ``float``, which waits for the device).
@@ -151,6 +156,37 @@ def make_train_step(cfg: ModelConfig, ocfg: Optional[opt.AdamWConfig] = None,
         return model, opt_state, {"loss": loss.detach(), **metrics, **om}
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Serve step (decode shapes) and prefill
+# ---------------------------------------------------------------------------
+
+def make_serve_step(cfg: ModelConfig):
+    @torch.no_grad()
+    def serve_step(model, cache, batch):
+        """(next token [B] int32, cache) after one ``decode_step``."""
+        logits, cache = api.decode_step(model, cfg, cache, batch)
+        return logits[:, -1].argmax(dim=-1).to(torch.int32), cache
+    return serve_step
+
+
+def make_prefill(cfg: ModelConfig):
+    """prefill = the forward returning the last position's logits [B,1,V]:
+    with ``cfg.loss_chunk`` and a module that has ``hidden``, the final
+    hidden states and a one-position unembed; else the full forward,
+    whose last position is copied out so that the [B,T,V] logits are
+    freed on return (a view would keep them alive)."""
+    mod = api.module_for(cfg)
+
+    @torch.no_grad()
+    def prefill(model, batch):
+        if cfg.loss_chunk and hasattr(mod, "hidden"):
+            h = mod.hidden(model, cfg, batch)
+            return T.unembed(model, cfg, h[:, -1:, :])
+        logits, _ = mod.forward(model, cfg, batch)
+        return logits[:, -1:, :].clone()
+    return prefill
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Boundaries of the PyTorch port: importing ``repro_torch`` (every
 submodule, the pipeline slice's, the schedule lint's, the SPMD
-runner's, the checkpoints' and the resilience runtime's among them) and
+runner's, the checkpoints', the resilience runtime's and the dense
+family's among them) and
 ``chip_smoke.py`` loads neither ``jax`` nor ``repro`` nor ``networkx``
 nor ``msgpack`` nor ``ml_dtypes``,
 checked in a fresh interpreter because the test worker may already hold
@@ -51,6 +52,12 @@ RUNTIME_MODULES = (
     "repro_torch.resilience.faults", "repro_torch.resilience.monitor",
     "repro_torch.resilience.manager", "repro_torch.resilience.trainer")
 
+#: the dense-family remainder's modules (the vlm backbone, the configs)
+DENSE_MODULES = (
+    "repro_torch.models.vlm", "repro_torch.configs.gemma2_9b",
+    "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.starcoder2_7b",
+    "repro_torch.configs.qwen2_vl_7b")
+
 
 def _env():
     env = dict(os.environ)
@@ -64,8 +71,8 @@ def test_port_imports_neither_jax_nor_repro():
                          text=True, timeout=120, env=_env(), cwd=str(ROOT))
     assert res.returncode == 0, res.stdout + res.stderr
     names = res.stdout.split()
-    assert len(names) >= 42
-    want = set(PIPELINE_MODULES) | set(RUNTIME_MODULES)
+    assert len(names) >= 62
+    want = set(PIPELINE_MODULES) | set(RUNTIME_MODULES) | set(DENSE_MODULES)
     assert want <= set(names), sorted(want - set(names))
 
 
