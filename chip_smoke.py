@@ -10,6 +10,7 @@ NVIDIA GPU. Run from the root of the repository:
     python3 chip_smoke.py --phases pp,spmd      # phases 1, 5b, 5c
     python3 chip_smoke.py --phases resilience   # phases 1, 5d
     python3 chip_smoke.py --phases dense        # phases 1, 4b
+    python3 chip_smoke.py --phases moe,hybrid   # phases 1, 4c, 4d
 
 Phases (any failure exits non-zero and prints no result line; the result
 line is printed only when every phase ran and passed):
@@ -110,6 +111,41 @@ line is printed only when every phase ran and passed):
    plain, chunked against unchunked, and ``decode_step`` token by token
    against the forward on a 64-token text prompt, each within 1e-4 of
    max |logit|.
+4c. ``moe``: deepseek-moe-16b (``configs/deepseek_moe_16b.py``, family
+   moe) at full width and depth in bf16 (16.4 B parameters), random
+   weights from a seeded generator, the capacity dispatch and
+   attn_impl="bam_kernel". K1 at its head layout (16/16 heads of 128,
+   T 2048, bf16 and f32) within ``compare`` of its plain version, times
+   beside the bound and SDPA; K2 and K3 at the same layout on the
+   prefill's bits, bf16 and f32, within ``compare``. ``make_prefill``
+   over B 1 x T 2048 (text 512, a modality-1 stream of 1024, text 512):
+   counts zeroed just before and read just after, K1 exactly 28
+   launches (the dense layer and 27 MoE layers) and no other kernel;
+   kernel and plain ms, peak memory and the share of routed (token, k)
+   pairs the capacity rule drops (forward hooks on the MoE layers). The
+   strip-cache serve loop of phase 4b (B 2, 64 prompt tokens, 32 greedy;
+   no kernel). At depth 2 in bf16, against an f32 forward of the same
+   weights: the MoE layer's input on the kernel path within
+   ``DENSE_BF16_FACTOR`` x the plain path's distance; the last-position
+   logits' distance under the capacity and the dense dispatch and the
+   routing decisions that differ from f32's, printed; f32 kernel against
+   plain within ``DENSE_F32_REL``. f32 at depth 2: one AdamW step on the
+   kernel path (K1, K2, K3) and one on the plain path from the same
+   weights, loss, grad_norm and parameters within ``DENSE_F32_REL``. At
+   depth 3 (the dense layer and two MoE layers, every parameter
+   trainable) 2 AdamW steps of ``make_train_step`` in bf16: per step K1
+   3 (6 under remat), K2 3, K3 3; ms, losses, the aux loss, peak memory;
+   the router moved. Then qwen2-moe-a2.7b at full width, depth 4: one
+   prefill (K1 4 launches), its 60 experts stacked as 64.
+4d. ``hybrid``: zamba2-2.7b (``configs/zamba2_2_7b.py``, family hybrid)
+   at full width and depth in bf16 (2.42 B parameters): ``make_prefill``
+   over B 1 x T 2048 with multimodal bits on the plain attention path
+   (its head_dim 80 is no kernel head size: the bam_kernel path must
+   raise the wrapper's ValueError), ms and peak; the serve loop of phase
+   4b; one Mamba2 block at full width in f32, the chunked SSD over 512
+   tokens against the block stepped token by token. No kernel launches
+   in the phase: the counts are read after the prefill, its reruns and
+   the refused call, and again after the serve loop and the SSD check.
 5. Train: 3 steps of ``make_mllm_train_step`` on
    ``build_paper_mllm("vlm", llm_size="M", vision_size="S")`` (a frozen
    40-layer EVA-CLIP-S-width encoder, a trainable linear projector, the
@@ -230,6 +266,7 @@ line is printed only when every phase ran and passed):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import gc
@@ -247,8 +284,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PHASES = ("kernels", "compact", "serving", "dense", "train", "pp", "spmd",
-          "resilience", "cp")
+PHASES = ("kernels", "compact", "serving", "dense", "moe", "hybrid",
+          "train", "pp", "spmd", "resilience", "cp")
 KERNEL_KEYS = ("K1", "K1s", "K1c", "K2", "K2c", "K3", "K3c", "K4")
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -486,6 +523,14 @@ def k1_gqa7_cases(smoke: Smoke):
     the bits of a 1024-patch image between two text runs: within
     ``compare`` of its plain version, with times, bound and SDPA beside
     it (bf16)."""
+    k1_head_layout_cases(smoke, 28, 4, "gqa7")
+
+
+def k1_head_layout_cases(smoke: Smoke, H: int, Hkv: int, key: str):
+    """K1 at H query heads over Hkv KV heads of 128, T 2048, bf16 and
+    f32, on the vlm image bits: within ``compare`` of its plain version;
+    the bf16 times, bound and SDPA's time go under
+    ``smoke.kernels["K1"][key]``."""
     torch = smoke.torch
     import torch.nn.functional as F
     from repro_torch.core import bam
@@ -493,7 +538,7 @@ def k1_gqa7_cases(smoke: Smoke):
         bam_flash_attention, bam_flash_attention_torch)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    T, H, Hkv, hd = 2048, 28, 4, 128
+    T, hd = 2048, 128
     bits, pos = vlm_image_bits(torch, T)
     for dt in ("bfloat16", "float32"):
         dtype = getattr(torch, dt)
@@ -507,7 +552,8 @@ def k1_gqa7_cases(smoke: Smoke):
         out_p, lse_p = bam_flash_attention_torch(*args, **kw)
         err, ratio = compare(out, out_p, dt)
         err_lse = float((lse - lse_p).abs().max())
-        name = f"K1 28/4 heads (group 7) T={T} vlm image {dt}"
+        name = (f"K1 {H}/{Hkv} heads (group {H // Hkv}) T={T} vlm image "
+                f"{dt}")
         smoke.check(ratio <= 1.0 and err_lse <= 1e-3,
                     f"{name}: max_abs_err out {err:.3e} (tol {TOL_TEXT[dt]}; "
                     f"worst |d|/tol {ratio:.3f}), lse {err_lse:.3e} "
@@ -530,7 +576,7 @@ def k1_gqa7_cases(smoke: Smoke):
               f"with bool mask {lib_ms:.3f} ms, bound {b_ms:.4f} ms "
               f"({b_by}); mask density {pairs / T / T:.3f}, "
               f"{flops / ms / 1e9:.1f} TFLOP/s [{smoke.smi}]", flush=True)
-        smoke.kernels["K1"]["gqa7"] = {
+        smoke.kernels.setdefault("K1", {})[key] = {
             "shape": f"q[1,{T},{H},{hd}] kv[1,{T},{Hkv},{hd}] {dt} vlm image",
             "max_abs_err": err, "worst_err_over_tol": ratio, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -548,6 +594,47 @@ def vlm_segments(T: int):
             for seg in mllm.default_layout(T - enc.num_tokens)]
 
 
+def bwd_check(smoke: Smoke, gen, q_shape, Hkv: int, bits, pos, dt: str,
+              name: str, **kw) -> dict:
+    """K2 and K3 (run twice: bit-identical) against their plain versions
+    from the same (out, lse, delta) K1 gives, on q/dO [B,T,H,hd] and K/V
+    [B,T,Hkv,hd] drawn from ``gen`` in ``dt``; each within ``compare``.
+    Returns the arguments, the kernels' outputs and the errors."""
+    torch = smoke.torch
+    from repro_torch.kernels.bam_attention import (
+        bam_bwd_dkv, bam_bwd_dkv_torch, bam_bwd_dq, bam_bwd_dq_torch,
+        bam_flash_attention, bwd_delta)
+
+    dtype = getattr(torch, dt)
+    B, T, H, hd = q_shape
+    q, do = (torch.randn(q_shape, generator=gen, device="cuda").to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn((B, T, Hkv, hd), generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    out, lse = bam_flash_attention(q, k, v, bits, bits, pos, pos,
+                                   return_mode="residual", **kw)
+    delta = bwd_delta(out, do)
+    args = (q, k, v, do, lse, delta, bits, bits, pos, pos)
+    dq = bam_bwd_dq(*args, **kw)
+    dk, dv = bam_bwd_dkv(*args, **kw)
+    dk2, dv2 = bam_bwd_dkv(*args, **kw)
+    torch.cuda.synchronize()
+    dq_p = bam_bwd_dq_torch(*args, **kw)
+    dk_p, dv_p = bam_bwd_dkv_torch(*args, **kw)
+    e_dq, r_dq = compare(dq, dq_p, dt)
+    e_dk, r_dk = compare(dk, dk_p, dt)
+    e_dv, r_dv = compare(dv, dv_p, dt)
+    same = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+    smoke.check(r_dq <= 1.0, f"K2 {name}: max_abs_err dq {e_dq:.3e} "
+                f"(tol {TOL_TEXT[dt]}; worst |d|/tol {r_dq:.3f})")
+    smoke.check(r_dk <= 1.0 and r_dv <= 1.0 and same,
+                f"K3 {name}: max_abs_err dk {e_dk:.3e} (worst |d|/tol "
+                f"{r_dk:.3f}), dv {e_dv:.3e} (worst {r_dv:.3f}), tol "
+                f"{TOL_TEXT[dt]}; second run bit-identical: {same}")
+    return {"args": args, "dq": dq, "dk": dk,
+            "errors": (e_dq, r_dq, e_dk, r_dk, e_dv, r_dv)}
+
+
 def bwd_cases(smoke: Smoke):
     """K2 and K3 against their plain versions from the same (out, lse,
     delta) K1 gives, at the train path's shapes."""
@@ -555,8 +642,7 @@ def bwd_cases(smoke: Smoke):
     import torch.nn.functional as F
     from repro_torch.core import bam
     from repro_torch.kernels.bam_attention import (
-        bam_bwd_dkv, bam_bwd_dkv_torch, bam_bwd_dq, bam_bwd_dq_torch,
-        bam_flash_attention, bwd_delta)
+        bam_bwd_dkv, bam_bwd_dkv_torch, bam_bwd_dq, bam_bwd_dq_torch)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     H, Hkv, hd = 32, 8, 128
@@ -565,36 +651,16 @@ def bwd_cases(smoke: Smoke):
              for dt in ("bfloat16", "float32")]
     headline = (1600, "bfloat16", 0.0, 0)
     for T, dt, softcap, window in cases:
-        dtype = getattr(torch, dt)
-        q, do = (torch.randn((1, T, H, hd), generator=gen,
-                             device="cuda").to(dtype) for _ in range(2))
-        k, v = (torch.randn((1, T, Hkv, hd), generator=gen,
-                            device="cuda").to(dtype) for _ in range(2))
         bits_np, pos_np = bam.build_sample_bits(vlm_segments(T), T)
         bits = torch.from_numpy(bits_np).cuda()[None]
         pos = torch.from_numpy(pos_np).cuda()[None]
         kw = dict(softcap=softcap, window=window)
-        out, lse = bam_flash_attention(q, k, v, bits, bits, pos, pos,
-                                       return_mode="residual", **kw)
-        delta = bwd_delta(out, do)
-        args = (q, k, v, do, lse, delta, bits, bits, pos, pos)
-        dq = bam_bwd_dq(*args, **kw)
-        dk, dv = bam_bwd_dkv(*args, **kw)
-        dk2, dv2 = bam_bwd_dkv(*args, **kw)
-        torch.cuda.synchronize()
-        dq_p = bam_bwd_dq_torch(*args, **kw)
-        dk_p, dv_p = bam_bwd_dkv_torch(*args, **kw)
-        e_dq, r_dq = compare(dq, dq_p, dt)
-        e_dk, r_dk = compare(dk, dk_p, dt)
-        e_dv, r_dv = compare(dv, dv_p, dt)
-        same = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
         name = f"T={T} vlm layout {dt} softcap={softcap} window={window}"
-        smoke.check(r_dq <= 1.0, f"K2 {name}: max_abs_err dq {e_dq:.3e} "
-                    f"(tol {TOL_TEXT[dt]}; worst |d|/tol {r_dq:.3f})")
-        smoke.check(r_dk <= 1.0 and r_dv <= 1.0 and same,
-                    f"K3 {name}: max_abs_err dk {e_dk:.3e} (worst |d|/tol "
-                    f"{r_dk:.3f}), dv {e_dv:.3e} (worst {r_dv:.3f}), tol "
-                    f"{TOL_TEXT[dt]}; second run bit-identical: {same}")
+        c = bwd_check(smoke, gen, (1, T, H, hd), Hkv, bits, pos, dt, name,
+                      **kw)
+        args, dq, dk = c["args"], c["dq"], c["dk"]
+        q, k, v, do, lse, delta = args[:6]
+        e_dq, r_dq, e_dk, r_dk, e_dv, r_dv = c["errors"]
         if (T, dt, softcap, window) != headline:
             continue
         ms_dq = cuda_ms(torch, lambda: bam_bwd_dq(*args, **kw))
@@ -1909,11 +1975,19 @@ def dense_phase(smoke: Smoke):
     dense_f32_parity(smoke, cfg)
 
 
-def dense_serve(smoke: Smoke, model, cfg):
+def tree_bytes(tree) -> int:
+    """Bytes of the tensors in a (nested) dict."""
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def dense_serve(smoke: Smoke, model, cfg, into=None):
     """``make_serve_step`` on the strip cache: a 64-token text prompt
     fed token by token, then 32 greedy tokens, B = 2, pos3 carried. Launch
     counts zeroed just before and read just after: no kernel launches
-    (the strip-cache decode is the plain path, as in JAX)."""
+    (the strip-cache decode is the plain path, as in JAX). The numbers go
+    under ``into["serve"]`` (default ``smoke.dense``)."""
     torch = smoke.torch
     from repro_torch.models import api
     from repro_torch.training import steps
@@ -1923,7 +1997,7 @@ def dense_serve(smoke: Smoke, model, cfg):
                            generator=gen, device="cuda", dtype=torch.int32)
     cache = api.init_cache(cfg, DENSE_B, DENSE_PROMPT + DENSE_NEW,
                            device="cuda")
-    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    cache_bytes = tree_bytes(cache)
     serve = steps.make_serve_step(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1960,9 +2034,9 @@ def dense_serve(smoke: Smoke, model, cfg):
                 and bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size))
                          .all()),
                 f"serve loop generated {DENSE_NEW} in-vocab tokens a row")
-    smoke.dense["serve"] = {"prompt_ms_per_tick": prompt_ms,
-                            "ms_per_tick": tick_ms, "cache_bytes": cache_bytes,
-                            "peak_gib": peak}
+    (smoke.dense if into is None else into)["serve"] = {
+        "prompt_ms_per_tick": prompt_ms, "ms_per_tick": tick_ms,
+        "cache_bytes": cache_bytes, "peak_gib": peak}
 
 
 def dense_f32_parity(smoke: Smoke, cfg):
@@ -2010,6 +2084,536 @@ def dense_f32_parity(smoke: Smoke, cfg):
                 f"f32 {cfg.name} 2 layers: decode_step over a "
                 f"{DENSE_PROMPT}-token text prompt vs the forward, max |d| / "
                 f"max |l| {r:.2e} (tol {DENSE_F32_REL})")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: the MoE family (deepseek-moe-16b, qwen2-moe-a2.7b)
+# ---------------------------------------------------------------------------
+
+MOE_T = 2048
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 3, 2
+QWEN_MOE_LAYERS = 4
+
+
+def full_config(name: str):
+    """The registered config at full width and depth."""
+    from repro_torch.configs.base import get_config
+    return get_config(name)
+
+
+def lm_batch(torch, cfg, gen, B: int = 1, T: int = MOE_T):
+    """B rows of T tokens on the card: text T/4, a modality-1 stream of
+    T/2, text T/4 (``bam.build_sample_bits``), random tokens and
+    labels."""
+    from repro_torch.core import bam
+    n = T // 4
+    bits, pos = bam.build_sample_bits(
+        [("text", 0, n), ("mod", 1, T - 2 * n), ("text", 0, n)], T)
+
+    def rows(a):
+        return torch.as_tensor(a, dtype=torch.int32,
+                               device="cuda")[None].expand(B, T).contiguous()
+
+    def draw():
+        return torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                             device="cuda", dtype=torch.int32)
+    return {"tokens": draw(), "labels": draw(), "positions": rows(pos),
+            "bits": rows(bits)}
+
+
+@contextlib.contextmanager
+def moe_routing(torch, model, inputs: bool = False):
+    """Forward hooks on every MoE layer's ``mlp`` of ``model``: the
+    yielded list gets, for each call, the top-k expert ids [B,T,K], the
+    capacity rule's kept mask [B,T*K] (``moe.router_probs`` and
+    ``moe.capacity_slots`` on the layer's input, as the dispatch computes
+    them) and, with ``inputs``, the input [B,T,d]; device tensors, no
+    host sync."""
+    from repro_torch.models import moe
+    log = []
+
+    def hook(mlp, args, out):
+        h, cfg = args
+        with torch.no_grad():
+            idx = moe.router_probs(mlp, h, cfg)[2]
+            slot, cap = moe.capacity_slots(idx, cfg)
+        log.append({"idx": idx, "keep": slot < cap,
+                    "h": h.detach() if inputs else None})
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, moe.MoEFFN)]
+    try:
+        yield log
+    finally:
+        for handle in handles:
+            handle.remove()
+
+
+def drop_fraction(log) -> float:
+    """Dropped share of the (token, k) pairs that ``moe_routing``
+    logged."""
+    kept = sum(int(r["keep"].sum()) for r in log)
+    routed = sum(r["keep"].numel() for r in log)
+    return 1.0 - kept / routed if routed else 0.0
+
+
+def kept_experts(torch, r, E: int):
+    """[B,T,E] bool: the experts each token's kept pairs reach."""
+    idx = r["idx"]
+    got = torch.zeros(idx.shape[:2] + (E,), dtype=torch.bool,
+                      device=idx.device)
+    return got.scatter_(-1, idx, r["keep"].view(idx.shape))
+
+
+def moe_phase(smoke: Smoke):
+    """deepseek-moe-16b at full width and depth, bf16, capacity dispatch,
+    attn_impl="bam_kernel": K1 at its 16/16 heads against the plain
+    version; the prefill (K1 once a layer); the strip-cache serve loop;
+    bf16 against f32 at depth 2; 2 AdamW steps at depth 3 (K1, K2, K3);
+    qwen2-moe-a2.7b's prefill at depth 4 with its padded experts."""
+    torch = smoke.torch
+    from repro_torch.models import api
+    from repro_torch.training import steps
+
+    cfg = full_config("deepseek-moe-16b").replace(attn_impl="bam_kernel")
+    k1_head_layout_cases(smoke, cfg.num_heads, cfg.num_kv_heads, "moe")
+    moe_bwd_cases(smoke, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = api.init(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    m = cfg.moe
+    print(f"{cfg.name}: {n_params / 1e9:.3f} B parameters ({cfg.num_layers}"
+          f" layers, {m.first_dense_layers} dense; {m.num_experts} experts "
+          f"top-{m.top_k} + {m.num_shared_experts} shared of {m.d_expert}; "
+          f"d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim}), bf16, {m.backend} dispatch (capacity factor "
+          f"{m.capacity_factor}), init {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    batch = lm_batch(torch, cfg, gen)
+    smoke.moe = {"params": n_params}
+
+    prefill = steps.make_prefill(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with moe_routing(torch, model) as log:
+        logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    drops = drop_fraction(log)
+    smoke.launches["moe"] = dict(counts)
+    others = {k: n for k, n in counts.items() if k != "K1" and n}
+    smoke.check(counts["K1"] == cfg.num_layers and not others,
+                f"K1 launched {counts['K1']} times in one bf16 prefill = "
+                f"{cfg.num_layers} layers ({m.first_dense_layers} dense, "
+                f"{cfg.num_layers - m.first_dense_layers} MoE); other "
+                f"kernels {others or 0}")
+    smoke.check(bool(torch.isfinite(logits).all())
+                and logits.shape == (1, 1, cfg.vocab_size),
+                f"bf16 prefill logits finite, shape {tuple(logits.shape)}")
+    ms = cuda_ms(torch, lambda: prefill(model, batch), iters=3, warmup=1)
+    plain = steps.make_prefill(cfg.replace(attn_impl="xla"))
+    plain_ms = cuda_ms(torch, lambda: plain(model, batch), iters=3, warmup=1)
+    print(f"{cfg.name} prefill through make_prefill, B 1 x T {MOE_T} "
+          f"({MOE_T // 4} text, {MOE_T // 2} modality-1, {MOE_T // 4} "
+          f"text): kernel {ms:.1f} ms, plain {plain_ms:.1f} ms, peak "
+          f"{peak:.2f} GiB; routed pairs dropped {drops:.4f} "
+          f"({len(log)} MoE layers) [{smoke.smi}]", flush=True)
+    busy, wall = profile_call(
+        torch, lambda: float(prefill(model, batch)[0, 0, 0]),
+        f"{cfg.name} prefill profile")
+    smoke.moe["prefill"] = {"ms": ms, "plain_ms": plain_ms,
+                            "peak_gib": peak, "drop_fraction": drops,
+                            "launches": dict(counts),
+                            "profile_busy_ms": busy, "profile_wall_ms": wall}
+    dense_serve(smoke, model, cfg, into=smoke.moe)
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_precision(smoke, cfg)
+    moe_train_parity(smoke, cfg)
+    moe_train(smoke, cfg)
+    qwen_moe_prefill(smoke)
+
+
+def moe_bwd_cases(smoke: Smoke, cfg):
+    """K2 and K3 at the MoE train path's head layout (16/16 heads of 128,
+    a GQA group of 1) on its bits (``lm_batch``: T/4 text, T/2
+    modality-1, T/4 text), T ``MOE_T``, bf16 and f32: each against its
+    plain version within ``compare``."""
+    torch = smoke.torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    b = lm_batch(torch, cfg, gen)
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    for dt in ("bfloat16", "float32"):
+        bwd_check(smoke, gen, (1, MOE_T, H, cfg.head_dim), Hkv, b["bits"],
+                  b["positions"], dt, f"{H}/{Hkv} heads (group {H // Hkv}) "
+                  f"T={MOE_T} moe layout {dt}")
+
+
+def moe_precision(smoke: Smoke, cfg):
+    """Depth 2 (the dense layer and one MoE layer), full width, bf16
+    kernel and plain prefills against an f32 forward of the same weights.
+    Bounded, as the dense phase bounds its logits: the MoE layer's input
+    (after both layers' attention, so K1's error at this layout) within
+    ``DENSE_BF16_FACTOR`` x the plain path's distance. Printed: the
+    last-position logits' distance, under the capacity dispatch and under
+    the dense one (nothing dropped), with the routing decisions that
+    differ from f32's: a top-k flip or a changed drop moves a logit by
+    more than rounding. f32 kernel against f32 plain within
+    ``DENSE_F32_REL``."""
+    torch = smoke.torch
+    from repro_torch.models import api
+    from repro_torch.training import steps
+
+    c2 = cfg.replace(num_layers=2)
+    dense = c2.replace(moe=dataclasses.replace(c2.moe, backend="dense"))
+    E = c2.moe.num_experts_padded
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    model = api.init(c2, device="cuda", generator=gen)
+    batch = lm_batch(torch, c2, gen)
+    c32 = c2.replace(dtype="float32")
+    m32 = api.init(c32, device="meta").to_empty(device="cuda")
+    m32.load_state_dict(model.state_dict())
+    runs = {}
+    for name, m, c in (("kernel", model, c2),
+                       ("plain", model, c2.replace(attn_impl="xla")),
+                       ("f32", m32, c32.replace(attn_impl="xla"))):
+        with moe_routing(torch, m, inputs=True) as log:
+            logits = steps.make_prefill(c)(m, batch)
+        dense_logits = steps.make_prefill(
+            c.replace(moe=dense.moe))(m, batch)
+        runs[name] = (logits, dense_logits, log[0])
+    zero_counts()
+    lk32 = steps.make_prefill(c32)(m32, batch)
+    k1 = kernel_counts()["K1"]
+    l32, l32d, r32 = runs["f32"]
+    del model, m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept32 = kept_experts(torch, r32, E)
+    sets32 = r32["idx"].sort(-1).values
+    out = {}
+    for name in ("kernel", "plain"):
+        lg, lgd, r = runs[name]
+        kept = kept_experts(torch, r, E)
+        out[name] = {
+            "hidden": rel_err(r["h"], r32["h"]),
+            "logits": rel_err(lg, l32), "logits_dense": rel_err(lgd, l32d),
+            "topk_flips": int((r["idx"].sort(-1).values != sets32)
+                              .any(-1).sum()),
+            "kept_changed": int((kept != kept32).any(-1).sum()),
+            "last_changed": bool((kept[0, -1] != kept32[0, -1]).any()),
+            "last_flip": bool((r["idx"][0, -1].sort().values
+                               != sets32[0, -1]).any())}
+    k, x = out["kernel"], out["plain"]
+    print(f"{cfg.name} depth 2, full width, B 1 x T {MOE_T}, bf16 against "
+          f"the f32 forward of the same weights, max |d| / max: " + "; ".join(
+              f"{n}: MoE layer input {o['hidden']:.4f}, last-position "
+              f"logits {o['logits']:.4f} (dense dispatch "
+              f"{o['logits_dense']:.4f}), "
+              f"tokens with another top-k set {o['topk_flips']}, with another "
+              f"kept set {o['kept_changed']} of {MOE_T}, the last token's "
+              f"top-k {'changed' if o['last_flip'] else 'same'}, its kept "
+              f"set {'changed' if o['last_changed'] else 'same'}"
+              for n, o in out.items())
+          + f"; f32 max |l| {float(l32.abs().max()):.3f} [{smoke.smi}]",
+          flush=True)
+    smoke.check(k["hidden"] <= DENSE_BF16_FACTOR * x["hidden"],
+                f"bf16 {cfg.name} depth 2: the MoE layer's input against "
+                f"f32's, kernel {k['hidden']:.4f} <= {DENSE_BF16_FACTOR} x "
+                f"plain {x['hidden']:.4f}")
+    r = rel_err(lk32, l32)
+    smoke.check(r <= DENSE_F32_REL and k1 == c2.num_layers,
+                f"f32 {cfg.name} 2 layers, full width, T {MOE_T}: kernel "
+                f"vs plain last-position logits max |d| / max |l| {r:.2e} "
+                f"(tol {DENSE_F32_REL}); K1 {k1} launches")
+    smoke.moe["bf16_vs_f32"] = dict(out, f32_kernel=r)
+
+
+def moe_train_parity(smoke: Smoke, cfg):
+    """f32, depth 2 (the dense layer and one MoE layer), full width, B 1 x
+    T ``MOE_T``: one AdamW ``make_train_step`` on the kernel path (K1, K2
+    and K3 at 16/16 heads) and one on the plain path from the same
+    weights. Loss, grad_norm and the parameters after the step within
+    ``DENSE_F32_REL`` (relative; parameters of max |parameter|). AdamW's
+    eps is 1e-3, as in the CPU tests: the first update is g / (|g| + eps),
+    which at eps 1e-8 turns f32 rounding of a gradient near 1e-8 into a
+    whole learning rate."""
+    torch = smoke.torch
+    from repro_torch.models import api
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.training import steps
+
+    c2 = cfg.replace(num_layers=2, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    model = api.init(c2, device="cuda", generator=gen)
+    model.requires_grad_(True)
+    batch = lm_batch(torch, c2, gen)
+    ocfg = opt.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10,
+                           eps=1e-3)
+    want = {"K1": (2 if c2.remat else 1) * c2.num_layers,
+            "K2": c2.num_layers, "K3": c2.num_layers}
+    res, params = {}, {}
+    for impl in ("bam_kernel", "xla"):
+        m = copy.deepcopy(model) if impl == "bam_kernel" else model
+        state = opt.init(ocfg, dict(m.named_parameters()))
+        step = steps.make_train_step(c2.replace(attn_impl=impl), ocfg)
+        zero_counts()
+        with moe_routing(torch, m) as log:
+            m, state, met = step(m, state, batch)
+        torch.cuda.synchronize()
+        counts = kernel_counts()
+        res[impl] = (float(met["loss"]), float(met["grad_norm"]),
+                     {k: counts[k] for k in want},
+                     torch.cat([r["idx"] for r in log]))
+        params[impl] = m
+        del state
+    (lk, gk, got, ik), (lx, gx, plain, ix) = res["bam_kernel"], res["xla"]
+    pk = dict(params["bam_kernel"].named_parameters())
+    worst, top = 0.0, 0.0
+    with torch.no_grad():
+        for n, p in params["xla"].named_parameters():
+            worst = max(worst, float((pk[n] - p).abs().max()))
+            top = max(top, float(p.abs().max()))
+    del params, pk, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rl, rg, rp = abs(lk - lx) / abs(lx), abs(gk - gx) / abs(gx), worst / top
+    same = bool(torch.equal(ik, ix))
+    smoke.check(got == want and not any(plain.values())
+                and max(rl, rg, rp) <= DENSE_F32_REL,
+                f"f32 {cfg.name} depth 2, full width, one AdamW step, kernel "
+                f"vs plain: loss {lk:.7f} vs {lx:.7f} (rel {rl:.2e}), "
+                f"grad_norm {gk:.7f} vs {gx:.7f} (rel {rg:.2e}), parameters "
+                f"max |d| / max |p| {rp:.2e} (tol {DENSE_F32_REL}); "
+                f"launches {got} (want {want}), plain path {plain}; top-k "
+                f"ids identical: {same}")
+    smoke.moe["train_parity_f32"] = {"loss_rel": rl, "grad_norm_rel": rg,
+                                     "params_rel": rp, "launches": got,
+                                     "same_routing": same}
+
+
+def moe_train(smoke: Smoke, cfg):
+    """``MOE_TRAIN_STEPS`` AdamW steps of ``make_train_step`` at full
+    width and depth ``MOE_TRAIN_LAYERS`` (the dense layer and two MoE
+    layers), every parameter trainable, B 1 x T ``MOE_T``. Counts zeroed
+    just before and read just after each step: K1 once a layer, twice
+    under ``cfg.remat`` (the recompute), K2 and K3 once a layer."""
+    torch = smoke.torch
+    from repro_torch.models import api
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.training import steps
+
+    c3 = cfg.replace(num_layers=MOE_TRAIN_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    model = api.init(c3, device="cuda", generator=gen)
+    model.requires_grad_(True)
+    named = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in named.values())
+    ocfg = opt.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10)
+    state = opt.init(ocfg, named)
+    step = steps.make_train_step(c3, ocfg)
+    batch = lm_batch(torch, c3, gen)
+    router = model.layers[0].mlp.router.detach().clone()
+    want = {"K1": (2 if c3.remat else 1) * c3.num_layers,
+            "K2": c3.num_layers, "K3": c3.num_layers}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    for i in range(MOE_TRAIN_STEPS):
+        zero_counts()
+        t0 = time.perf_counter()
+        model, state, met = step(model, state, batch)
+        torch.cuda.synchronize()
+        took = (time.perf_counter() - t0) * 1e3
+        counts = kernel_counts()
+        got = {k: counts[k] for k in want}
+        others = {k: n for k, n in counts.items() if k not in want and n}
+        smoke.check(got == want and not others,
+                    f"{cfg.name} depth {c3.num_layers} train step {i}: "
+                    f"launches {got} (want {want}, remat {c3.remat}); "
+                    f"others {others or 0}")
+        rows.append({"ms": took, "loss": float(met["loss"]),
+                     "aux_loss": float(met["aux_loss"].detach()),
+                     "grad_norm": float(met["grad_norm"])})
+    smoke.launches["moe_train"] = dict(counts)
+    busy, wall = profile_step(torch, step, model, state, batch,
+                              f"{cfg.name} depth {c3.num_layers} train")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = float((model.layers[0].mlp.router.detach() - router).abs().max())
+    print(f"{cfg.name} train, full width, depth {c3.num_layers} "
+          f"({n_params / 1e9:.3f} B parameters, all trainable), B 1 x T "
+          f"{MOE_T}, AdamW: " + ", ".join(
+              f"step {i} {r['ms']:.1f} ms loss {r['loss']:.4f} (aux "
+              f"{r['aux_loss']:.5f}) grad_norm {r['grad_norm']:.4f}"
+              for i, r in enumerate(rows))
+          + f"; peak {peak:.2f} GiB [{smoke.smi}]", flush=True)
+    smoke.check(all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+                    and r["aux_loss"] > 0 for r in rows) and moved > 0,
+                f"{cfg.name} train: losses finite, aux loss > 0, the "
+                f"router moved (max |d| {moved:.3e})")
+    smoke.moe["train"] = {"steps": rows, "peak_gib": peak,
+                          "params": n_params, "launches": dict(counts),
+                          "profile_busy_ms": busy, "profile_wall_ms": wall}
+    del model, state, named
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def qwen_moe_prefill(smoke: Smoke):
+    """qwen2-moe-a2.7b at full width, depth ``QWEN_MOE_LAYERS``, bf16:
+    one prefill through K1 (once a layer); its 60 experts padded to 64,
+    the 4 pads never routed to."""
+    torch = smoke.torch
+    from repro_torch.models import api
+    from repro_torch.training import steps
+
+    cfg = full_config("qwen2-moe-a2.7b").replace(
+        num_layers=QWEN_MOE_LAYERS, attn_impl="bam_kernel")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    model = api.init(cfg, device="cuda", generator=gen)
+    batch = lm_batch(torch, cfg, gen)
+    prefill = steps.make_prefill(cfg)
+    zero_counts()
+    with moe_routing(torch, model) as log:
+        logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    lp = model.layers[0].mlp
+    padded = (lp.w_gate.shape[0], lp.router.shape[1])
+    smoke.check(counts["K1"] == cfg.num_layers
+                and bool(torch.isfinite(logits).all())
+                and padded == (cfg.moe.num_experts_padded,
+                               cfg.moe.num_experts),
+                f"{cfg.name} depth {cfg.num_layers}: K1 {counts['K1']} "
+                f"launches, logits finite; experts stacked {padded[0]}, "
+                f"routed over {padded[1]}")
+    ms = cuda_ms(torch, lambda: prefill(model, batch), iters=3, warmup=1)
+    drops = drop_fraction(log)
+    print(f"{cfg.name} prefill, full width, depth {cfg.num_layers}, B 1 x "
+          f"T {MOE_T}: {ms:.1f} ms; routed pairs dropped {drops:.4f} "
+          f"[{smoke.smi}]", flush=True)
+    smoke.moe["qwen2_moe_prefill"] = {"ms": ms, "drop_fraction": drops,
+                                      "layers": cfg.num_layers}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 4d: the hybrid family (zamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+HYB_SSD_T = 512               # 4 chunks of 128
+
+
+def hybrid_phase(smoke: Smoke):
+    """zamba2-2.7b at full width and depth, bf16, plain attention (its
+    head_dim 80 is no kernel head size): the prefill over B 1 x T 2048
+    with multimodal bits, the kernel path's refusal, the strip-cache
+    serve loop, and the chunked SSD against the recurrence in f32. No
+    kernel launches in the whole phase."""
+    torch = smoke.torch
+    from repro_torch.models import api
+    from repro_torch.training import steps
+
+    cfg = full_config("zamba2-2.7b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    t0 = time.perf_counter()
+    model = api.init(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {n_params / 1e9:.3f} B parameters ({cfg.num_layers}"
+          f" Mamba2 layers, a shared attention block every "
+          f"{cfg.attn_layer_period}; d {cfg.d_model}, {cfg.num_heads} heads "
+          f"of {cfg.head_dim}; SSD chunk {cfg.ssm.chunk}), bf16, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    batch = lm_batch(torch, cfg, gen)
+    prefill = steps.make_prefill(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    smoke.check(bool(torch.isfinite(logits).all())
+                and logits.shape == (1, 1, cfg.vocab_size),
+                f"{cfg.name} bf16 prefill logits finite, shape "
+                f"{tuple(logits.shape)}")
+    ms = cuda_ms(torch, lambda: prefill(model, batch), iters=3, warmup=1)
+    print(f"{cfg.name} prefill through make_prefill, B 1 x T {MOE_T} "
+          f"(multimodal bits), plain attention: {ms:.1f} ms, peak "
+          f"{peak:.2f} GiB [{smoke.smi}]", flush=True)
+    busy, wall = profile_call(
+        torch, lambda: float(prefill(model, batch)[0, 0, 0]),
+        f"{cfg.name} prefill profile")
+    smoke.hybrid = {"params": n_params,
+                    "prefill": {"ms": ms, "peak_gib": peak,
+                                "profile_busy_ms": busy,
+                                "profile_wall_ms": wall}}
+    refused = None
+    try:
+        steps.make_prefill(cfg.replace(attn_impl="bam_kernel"))(model, batch)
+    except ValueError as e:
+        refused = str(e)
+    smoke.check(refused is not None and f"head_dim {cfg.head_dim}" in refused,
+                f"{cfg.name} on the bam_kernel path raises the wrapper's "
+                f"ValueError: {refused}")
+    counts = kernel_counts()
+    smoke.launches["hybrid"] = dict(counts)
+    smoke.check(not any(counts.values()),
+                f"{cfg.name}: no kernel launched in the prefill, its timed "
+                f"and profiled reruns and the refused kernel path ({counts})")
+    dense_serve(smoke, model, cfg, into=smoke.hybrid)
+    del model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_ssd_check(smoke, cfg)
+    counts = kernel_counts()
+    smoke.check(not any(counts.values()),
+                f"{cfg.name}: no kernel launched in the serve loop and the "
+                f"SSD check ({counts})")
+
+
+def hybrid_ssd_check(smoke: Smoke, cfg):
+    """One Mamba2 block at full width in f32 (decay per head drawn from
+    the seed): the chunked SSD over ``HYB_SSD_T`` tokens against the
+    block stepped one token at a time, the block's output (less its
+    residual) and final state each within ``DENSE_F32_REL`` of its max."""
+    torch = smoke.torch
+    from repro_torch.models import mamba2
+
+    c32 = cfg.replace(dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    lp = mamba2.MambaLayer(c32, torch.float32, "cuda", gen)
+    s = c32.ssm
+    nh = s.n_heads(c32.d_model)
+    with torch.no_grad():
+        lp.A_log.copy_(torch.randn((nh,), generator=gen, device="cuda") * 0.5)
+        lp.dt_bias.copy_(torch.randn((nh,), generator=gen, device="cuda"))
+        x = torch.randn((1, HYB_SSD_T, c32.d_model), generator=gen,
+                        device="cuda")
+        y, h, _ = mamba2.mamba_block(lp, c32, x)
+        state = torch.zeros_like(h)
+        conv = torch.zeros((1, s.d_conv - 1, mamba2._conv_channels(c32)),
+                           device="cuda")
+        ys = []
+        for t in range(HYB_SSD_T):
+            yt, state, conv = mamba2.mamba_block(
+                lp, c32, x[:, t:t + 1], h0=state, conv_state=conv, step=True)
+            ys.append(yt)
+        ry = rel_err(torch.cat(ys, 1) - x, y - x)
+        rh = rel_err(state, h)
+    smoke.check(ry <= DENSE_F32_REL and rh <= DENSE_F32_REL,
+                f"f32 {cfg.name} Mamba2 block at full width (d "
+                f"{c32.d_model}, {nh} heads of {s.head_dim}, state "
+                f"{s.d_state}), T {HYB_SSD_T} = {HYB_SSD_T // s.chunk} "
+                f"chunks: chunked SSD vs the recurrence, output max |d| / "
+                f"max {ry:.2e}, final state {rh:.2e} (tol {DENSE_F32_REL})")
+    smoke.hybrid["ssd_check"] = {"output_rel": ry, "state_rel": rh}
 
 
 # ---------------------------------------------------------------------------
@@ -3292,19 +3896,27 @@ def profile_step(torch, step, model, state, batch, label: str):
     """One more step under torch.profiler: prints the wall time, the
     device busy share and the top kernels by device time; returns
     (busy ms, wall ms)."""
+    return profile_call(
+        torch, lambda: float(step(model, state, batch)[2]["loss"]),
+        f"{label} profile, 1 step")
+
+
+def profile_call(torch, fn, label: str):
+    """fn() under torch.profiler (it must end by reading a result from
+    the card): prints the wall time, the device busy share and the top
+    kernels by device time; returns (busy ms, wall ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, _, met = step(model, state, batch)
-        float(met["loss"])
+        fn()
         wall_us = (time.perf_counter() - t0) * 1e6
     evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in evs)
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
-    print(f"{label} profile, 1 step: wall {wall_us / 1e3:.1f} ms, device "
+    print(f"{label}: wall {wall_us / 1e3:.1f} ms, device "
           f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / wall_us:.1f}% "
           f"busy); top kernels: " + "; ".join(
               f"{e.key[:48]} {e.self_device_time_total / 1e3:.2f} ms "
@@ -3565,6 +4177,14 @@ def main() -> int:
         dense_phase(smoke)
         gc.collect()
         torch.cuda.empty_cache()
+    if "moe" in phases:
+        moe_phase(smoke)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "hybrid" in phases:
+        hybrid_phase(smoke)
+        gc.collect()
+        torch.cuda.empty_cache()
     if "train" in phases:
         train_phase(smoke)
         gc.collect()
@@ -3596,8 +4216,9 @@ def main() -> int:
               f"for a partial run")
         return 0
     # launches: each kernel's count on each path it is on (serving: K1,
-    # K4; dense: K1; train and pp: K1, K2, K3; cp: K1 stats, K2, K3; compact: K1c,
-    # K2c, K3c); "launches" is the train path's for K1-K3, the CP path's
+    # K4; dense and moe: K1; train, moe_train and pp: K1, K2, K3; cp: K1
+    # stats, K2, K3; compact: K1c, K2c, K3c); "launches" is the train
+    # path's for K1-K3, the CP path's
     # for K1 stats, the compact path's for K1c-K3c
     paths = smoke.launches
     for key in KERNEL_KEYS:

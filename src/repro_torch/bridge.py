@@ -4,19 +4,21 @@ same weights and read each other's checkpoints.
 
 The JAX tree stacks every layer's leaves on a leading axis
 (``layers.stacked_init``); the port holds one module per layer, so that
-axis is unstacked into ``layers.<i>.<path>``. Both packages keep
-weights as [d_in, d_out], so every other leaf is a plain copy. Loads are
-strict: every parameter on both sides must be matched.
+axis is unstacked into ``layers.<i>.<path>``. The stacked groups are
+``layers`` and, for deepseek-moe's leading dense layers, ``dense_layers``
+(``STACKED``); each has its own depth (``stack_depths``). Both packages
+keep weights as [d_in, d_out], so every other leaf is a plain copy.
+Loads are strict: every parameter on both sides must be matched.
 
 The way back (``jax_tree``, ``params_tree``, ``state_tree``) nests the
-port's parameter names on their dots and stacks ``layers.<i>`` again as
+port's parameter names on their dots and stacks ``<group>.<i>`` again as
 a ``checkpoint.Stacked`` leaf that refers to the live tensors; the
 ``to_jax_*`` functions materialise it as numpy (bfloat16 as float32,
 which holds it exactly).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,17 +40,36 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def state_dict_from_jax(tree: Mapping, num_layers: int) -> Dict[str, np.ndarray]:
-    """Flat {module path: array} with the layer axis unstacked."""
+#: the tree's groups of layers stacked on a leading axis
+STACKED = ("layers", "dense_layers")
+
+
+def stack_depths(cfg: ModelConfig) -> Dict[str, int]:
+    """{stacked group: depth} of a config's tree: an MoE config's dense
+    prefix is ``dense_layers``, the rest ``layers``."""
+    fd = cfg.moe.first_dense_layers if cfg.moe is not None else 0
+    if fd:
+        return {"layers": cfg.num_layers - fd, "dense_layers": fd}
+    return {"layers": cfg.num_layers}
+
+
+def state_dict_from_jax(tree: Mapping, num_layers: Union[int, Mapping]
+                        ) -> Dict[str, np.ndarray]:
+    """Flat {module path: array} with each stacked group's layer axis
+    unstacked. ``num_layers``: the depth of ``layers``, or {group:
+    depth} (``stack_depths``)."""
+    depths = {"layers": num_layers} if isinstance(num_layers, int) \
+        else dict(num_layers)
     flat = {}
     for name, arr in _flatten(tree).items():
-        if name.startswith("layers."):
-            if arr.shape[0] != num_layers:
+        group, _, rest = name.partition(".")
+        if group in STACKED and rest:
+            n = depths.get(group)
+            if arr.shape[0] != n:
                 raise ValueError(f"{name}: leading axis {arr.shape[0]} != "
-                                 f"num_layers {num_layers}")
-            rest = name[len("layers."):]
-            for i in range(num_layers):
-                flat[f"layers.{i}.{rest}"] = arr[i]
+                                 f"the config's {group} depth {n}")
+            for i in range(n):
+                flat[f"{group}.{i}.{rest}"] = arr[i]
         else:
             flat[name] = arr
     return flat
@@ -69,7 +90,7 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig, device="cuda"):
     leaves, e.g. ``jax.tree.map(np.asarray, params)``), in cfg's dtype."""
     dev = resolve_device(device)
     return _load(api.init(cfg, device="meta"),
-                 state_dict_from_jax(tree, cfg.num_layers), dev)
+                 state_dict_from_jax(tree, stack_depths(cfg)), dev)
 
 
 def mllm_from_jax_params(tree: Mapping, mllm, device="cuda"):
@@ -105,19 +126,20 @@ def mllm_from_jax_params(tree: Mapping, mllm, device="cuda"):
 # ---------------------------------------------------------------------------
 
 def _split_layer(name: str) -> Tuple[List[str], Optional[int]]:
-    """'llm.layers.3.attn.wq' -> (['llm', 'layers', 'attn', 'wq'], 3)."""
+    """'llm.layers.3.attn.wq' -> (['llm', 'layers', 'attn', 'wq'], 3);
+    likewise under ``dense_layers``."""
     parts = name.split(".")
     for k in range(len(parts) - 1):
-        if parts[k] == "layers" and parts[k + 1].isdigit():
+        if parts[k] in STACKED and parts[k + 1].isdigit():
             return parts[:k + 1] + parts[k + 2:], int(parts[k + 1])
     return parts, None
 
 
 def jax_tree(named: Mapping[str, torch.Tensor]) -> dict:
     """{port name: tensor} -> the reference's nested tree: names nest on
-    their dots and the layers of ``<a>.layers.<i>.<b>`` stack again into
-    one ``Stacked`` leaf at ``a/layers/b`` (layer order, which must be
-    contiguous)."""
+    their dots and the layers of ``<a>.layers.<i>.<b>`` (or
+    ``dense_layers``) stack again into one ``Stacked`` leaf at
+    ``a/layers/b`` (layer order, which must be contiguous)."""
     tree: dict = {}
     stacks: Dict[Tuple[str, ...], Dict[int, torch.Tensor]] = {}
     for name, t in named.items():
@@ -254,18 +276,23 @@ def _to_numpy(tree):
     return walk(tree)
 
 
-def _check_depth(tree: Mapping, num_layers: int, what: str) -> None:
-    for path, leaf in paths_and_leaves(tree.get("layers", {})):
-        if leaf.shape[0] != num_layers:
-            raise ValueError(f"{what}layers/{path}: {leaf.shape[0]} layers, "
-                             f"the config has {num_layers}")
+def _check_depth(tree: Mapping, num_layers: Union[int, Mapping],
+                 what: str) -> None:
+    depths = {"layers": num_layers} if isinstance(num_layers, int) \
+        else num_layers
+    for group in STACKED:
+        for path, leaf in paths_and_leaves(tree.get(group, {})):
+            if leaf.shape[0] != depths.get(group):
+                raise ValueError(
+                    f"{what}{group}/{path}: {leaf.shape[0]} layers, the "
+                    f"config has {depths.get(group)}")
 
 
 def to_jax_params(model, cfg: ModelConfig) -> dict:
     """The JAX package's parameter tree (numpy leaves) of a port model:
     the inverse of ``from_jax_params``."""
     tree = jax_tree(dict(model.named_parameters()))
-    _check_depth(tree, cfg.num_layers, "")
+    _check_depth(tree, stack_depths(cfg), "")
     return _to_numpy(tree)
 
 

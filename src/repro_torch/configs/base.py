@@ -16,6 +16,45 @@ from typing import Any, Callable, Optional, Tuple
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN config (shared + routed experts)."""
+
+    num_experts: int
+    top_k: int
+    num_shared_experts: int = 0
+    d_expert: int = 0           # per-expert FFN hidden size
+    first_dense_layers: int = 0  # leading dense layers (deepseek-moe style)
+    router_aux_coef: float = 0.01
+    capacity_factor: float = 1.25
+    backend: str = "capacity"    # capacity (fixed-capacity scatter) | dense
+    expert_pad_to: int = 0       # pad E up to a multiple (dummy experts)
+
+    @property
+    def num_experts_padded(self) -> int:
+        if not self.expert_pad_to:
+            return self.num_experts
+        m = self.expert_pad_to
+        return ((self.num_experts + m - 1) // m) * m
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) config."""
+
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 128
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
 class MultimodalConfig:
     """Multimodal (vlm) composition extras; the frontend is stubbed."""
 
@@ -50,11 +89,10 @@ class ModelConfig:
     post_block_norm: bool = False
     embed_scale: bool = False
 
-    # family extras: the other families' sub-configs are objects in the
-    # JAX package and unported here (ROADMAP.md item 20); the dense and
-    # vlm families read only mm.mrope_sections
-    moe: Any = None
-    ssm: Any = None
+    # family extras: xlstm and encdec are objects in the JAX package and
+    # unported here (ROADMAP.md item 20, the ssm and audio families)
+    moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     xlstm: Any = None
     encdec: Any = None
     mm: Optional[MultimodalConfig] = None
@@ -92,14 +130,84 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Parameters of the dense and vlm families (the ones the port
-        runs), by the reference's formula."""
+        """Parameters of the families the port runs (dense, vlm, moe,
+        hybrid), by the reference's formula."""
         d, L, V = self.d_model, self.num_layers, self.vocab_size
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
-        ff = 3 * d * self.d_ff if self.act == "silu" else 2 * d * self.d_ff
+        if self.family == "moe" and self.moe is not None:
+            m = self.moe
+            ff_rout = 3 * d * m.d_expert * m.num_experts
+            ff_shared = 3 * d * m.d_expert * m.num_shared_experts
+            router = d * m.num_experts
+            dense_ff = 3 * d * self.d_ff if m.first_dense_layers else 0
+            n_moe = L - m.first_dense_layers
+            layers = n_moe * (attn + ff_rout + ff_shared + router) + \
+                m.first_dense_layers * (attn + dense_ff)
+        elif self.family == "hybrid":
+            ssm_p = self._mamba_layer_params()
+            n_attn = (L // self.attn_layer_period) if self.attn_layer_period \
+                else 0
+            attn_p = attn + 3 * d * self.d_ff
+            if self.shared_attn:
+                layers = L * ssm_p + attn_p  # one shared block
+            else:
+                layers = L * ssm_p + n_attn * attn_p
+        else:
+            ff = 3 * d * self.d_ff if self.act == "silu" else 2 * d * self.d_ff
+            layers = L * (attn + ff)
         embed = V * d * (1 if self.tie_embeddings else 2)
-        return int(L * (attn + ff) + embed)
+        return int(layers + embed)
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed-in experts)."""
+        if self.family != "moe" or self.moe is None:
+            return self.param_count()
+        m = self.moe
+        d, L = self.d_model, self.num_layers
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        ff_act = 3 * d * m.d_expert * (m.top_k + m.num_shared_experts)
+        router = d * m.num_experts
+        dense_ff = 3 * d * self.d_ff if m.first_dense_layers else 0
+        n_moe = L - m.first_dense_layers
+        layers = n_moe * (attn + ff_act + router) + \
+            m.first_dense_layers * (attn + dense_ff)
+        embed = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return int(layers + embed)
+
+    def _mamba_layer_params(self) -> int:
+        s = self.ssm or SSMConfig()
+        d = self.d_model
+        di = s.d_inner(d)
+        nh = s.n_heads(d)
+        in_proj = d * (2 * di + 2 * s.d_state + nh)  # z,x,B,C,dt (grouped)
+        conv = s.d_conv * (di + 2 * s.d_state)
+        out = di * d
+        return in_proj + conv + out + di + 2 * nh
+
+
+# ---------------------------------------------------------------------------
+# Input shapes
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str   # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
 
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 _REDUCED: dict[str, Callable[[], ModelConfig]] = {}
@@ -119,7 +227,31 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     return table[name]()
 
 
+def list_archs() -> list[str]:
+    _ensure_imported()
+    return sorted(_REGISTRY)
+
+
 def _ensure_imported() -> None:
     # config modules register themselves on import
     from repro_torch.configs import (  # noqa: F401
-        gemma2_9b, qwen2_5_14b, qwen2_vl_7b, qwen3_1_7b, starcoder2_7b)
+        deepseek_moe_16b, gemma2_9b, qwen2_5_14b, qwen2_moe_a2_7b,
+        qwen2_vl_7b, qwen3_1_7b, starcoder2_7b, zamba2_2_7b)
+
+
+# Which (arch, shape) pairs are skipped and why (the reference's
+# long_500k policy: only sub-quadratic archs run it).
+LONG_CONTEXT_OK = {"zamba2-2.7b", "xlstm-125m", "gemma2-9b"}
+
+SKIPS: dict[tuple[str, str], str] = {
+    (a, "long_500k"):
+        "pure full-attention arch; no sub-quadratic variant (DESIGN.md)"
+    for a in (
+        "starcoder2-7b", "qwen3-1.7b", "qwen2.5-14b", "qwen2-vl-7b",
+        "whisper-base", "qwen2-moe-a2.7b", "deepseek-moe-16b",
+    )
+}
+
+
+def pair_skip_reason(arch: str, shape: str) -> Optional[str]:
+    return SKIPS.get((arch, shape))

@@ -1,6 +1,7 @@
 """Uniform model API — dispatch on ``cfg.family`` (port of
-``repro.models.api``). The port has the dense and vlm families; the
-others are ROADMAP.md queue 1 item 20 ("Other backbones").
+``repro.models.api``). The port has the dense, vlm, moe and hybrid
+families; ssm (xLSTM) and audio (Whisper) are ROADMAP.md queue 1 item 20
+("Other backbones").
 
     init(cfg, device=, generator=)                     -> model
     forward(model, cfg, batch)                         -> (logits, aux)
@@ -10,9 +11,10 @@ others are ROADMAP.md queue 1 item 20 ("Other backbones").
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer, vlm
+from repro_torch.models import mamba2, moe, transformer, vlm
 
-_FAMILIES = {"dense": transformer, "vlm": vlm}
+_FAMILIES = {"dense": transformer, "moe": moe, "hybrid": mamba2,
+             "vlm": vlm}
 
 
 def module_for(cfg: ModelConfig):

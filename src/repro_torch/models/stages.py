@@ -389,7 +389,7 @@ def build_mllm_stages(mllm, executor: Mapping[str, Any], *,
             else:
                 h = x[..., :cfg.d_model].to(T.torch_dtype(cfg))
             for i in range(sp.lo, sp.hi):
-                h = T.remat(cfg, functools.partial(
+                h, _ = T.remat(cfg, functools.partial(
                     T._block_out, cfg, llm.layers[str(i)], batch, i), h)
             if not sp.last:
                 return F.pad(h.to(x.dtype), (0, dc - cfg.d_model))

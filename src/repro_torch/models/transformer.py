@@ -20,6 +20,13 @@ embed_mask [B,T] bool (multimodal merge); optional pos3 [3,B,T] int32
 ``init_cache`` and ``decode_step`` decode one token a row against a
 [L, B, Tmax] strip cache, as the JAX package's; the paged cache
 (``repro_torch.serving``) is the port's other decode path.
+
+The MoE family (``models.moe``) and the hybrid's shared attention block
+(``models.mamba2``) reuse this skeleton: ``init``'s ``ffn_init`` builds
+another FFN module under ``mlp``, and ``_block``, ``run_layers`` and
+``decode_step`` take an ``ffn(layer, h, layer_idx) -> (out, aux)`` hook
+whose aux (the router's load-balance loss) ``run_layers`` sums over
+layers and ``hidden`` returns as ``{"aux_loss": ...}``.
 """
 from __future__ import annotations
 
@@ -46,37 +53,47 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device, generator):
+    def __init__(self, cfg: ModelConfig, dtype, device, generator,
+                 ffn_init=None):
         super().__init__()
         gated = cfg.act == "silu" or cfg.name.startswith("gemma2")
         self.ln1 = L.Norm(cfg, cfg.d_model, dtype, device)
         self.attn = L.Attention(cfg, dtype, device, generator)
         self.ln2 = L.Norm(cfg, cfg.d_model, dtype, device)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dtype, device, generator,
-                         gated)
+        if ffn_init is None:
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, dtype, device,
+                             generator, gated)
+        else:
+            self.mlp = ffn_init(dtype, device, generator)
         if cfg.post_block_norm:
             self.post_ln1 = L.Norm(cfg, cfg.d_model, dtype, device)
             self.post_ln2 = L.Norm(cfg, cfg.d_model, dtype, device)
 
 
 class TransformerLM(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device="cuda", generator=None):
+    def __init__(self, cfg: ModelConfig, *, device="cuda", generator=None,
+                 ffn_init=None):
         super().__init__()
         dev = resolve_device(device)
         dtype = torch_dtype(cfg)
         self.embed = L.normal_param((cfg.vocab_size, cfg.d_model), dtype,
                                     dev, generator)
         self.layers = nn.ModuleList(
-            Block(cfg, dtype, dev, generator) for _ in range(cfg.num_layers))
+            Block(cfg, dtype, dev, generator, ffn_init)
+            for _ in range(cfg.num_layers))
         self.final_ln = L.Norm(cfg, cfg.d_model, dtype, dev)
         self.unembed = None if cfg.tie_embeddings else L.normal_param(
             (cfg.d_model, cfg.vocab_size), dtype, dev, generator)
 
 
-def init(cfg: ModelConfig, *, device="cuda", generator=None) -> TransformerLM:
+def init(cfg: ModelConfig, *, device="cuda", generator=None,
+         ffn_init=None) -> TransformerLM:
     """Random weights (normal × 0.02 for matrices, as the JAX init) on
-    ``device``, drawn from ``generator`` (on the same device)."""
-    return TransformerLM(cfg, device=device, generator=generator)
+    ``device``, drawn from ``generator`` (on the same device).
+    ``ffn_init(dtype, device, generator)``, if given, builds each
+    layer's ``mlp`` module in place of the dense MLP."""
+    return TransformerLM(cfg, device=device, generator=generator,
+                         ffn_init=ffn_init)
 
 
 # ---------------------------------------------------------------------------
@@ -116,37 +133,44 @@ def _mask_for(batch, window: int, q_slice=None):
 
 
 def _default_ffn(lp: Block, h, cfg: ModelConfig):
-    return L.run_mlp(lp.mlp, h, cfg.act)
+    """The dense MLP: (out, aux) with aux 0 (no router)."""
+    return L.run_mlp(lp.mlp, h, cfg.act), 0.0
 
 
-def _block(cfg: ModelConfig, p: Block, x, batch, layer_idx: int):
-    """One layer. Returns (x, (k, v)) with the layer's projected, roped
-    K/V (kept by the serving prefill)."""
+def _block(cfg: ModelConfig, p: Block, x, batch, layer_idx: int, ffn=None):
+    """One layer. Returns (x, aux, (k, v)): aux the FFN's (0.0 for the
+    dense MLP), k/v the layer's projected, roped K/V (kept by the serving
+    prefill). ``ffn(p, h, layer_idx) -> (out, aux)`` replaces the dense
+    MLP."""
     window = layer_window(cfg, layer_idx)
-    # the BAM kernel and context parallelism take one static window for
-    # the model; gemma2's per-layer alternation stays on the plain path,
-    # as in JAX (a cp_mesh is then ignored: each rank computes full
-    # attention)
-    kernel_bits = None
-    if ((cfg.attn_impl != "xla" or cfg.cp_mesh is not None)
-            and batch.get("bits") is not None
-            and not cfg.local_global_pattern):
-        kernel_bits = batch["bits"]
+    # context parallelism takes the layer's own static window, so
+    # gemma2's local/global alternation stays context parallel and exact
+    # (a rank holds only its run of the sequence: plain attention there
+    # would see that run alone). Off CP the BAM kernel takes one window
+    # for the model, and the alternation stays on the plain path, as in
+    # JAX.
+    bits = batch.get("bits")
+    use_bits = bits is not None and (
+        cfg.cp_mesh is not None
+        or (cfg.attn_impl != "xla" and not cfg.local_global_pattern))
 
     h = L.apply_norm(cfg, p.ln1, x)
     attn_out, kv = L.run_attention(
         p.attn, cfg, h, q_pos=batch["positions"],
         mask_fn=lambda start, size: _mask_for(batch, window, (start, size)),
-        pos3=batch.get("pos3"), bits=kernel_bits,
-        window=cfg.sliding_window if kernel_bits is not None else 0)
+        pos3=batch.get("pos3"), bits=bits if use_bits else None,
+        window=window if use_bits else 0)
     if cfg.post_block_norm:
         attn_out = L.apply_norm(cfg, p.post_ln1, attn_out)
     x = x + attn_out
     h = L.apply_norm(cfg, p.ln2, x)
-    mlp_out = _default_ffn(p, h, cfg)
+    if ffn is None:
+        mlp_out, aux = _default_ffn(p, h, cfg)
+    else:
+        mlp_out, aux = ffn(p, h, layer_idx)
     if cfg.post_block_norm:
         mlp_out = L.apply_norm(cfg, p.post_ln2, mlp_out)
-    return x + mlp_out, kv
+    return x + mlp_out, aux, kv
 
 
 # ---------------------------------------------------------------------------
@@ -163,8 +187,12 @@ def embed_tokens(model: TransformerLM, cfg: ModelConfig, batch):
     return x
 
 
-def _block_out(cfg: ModelConfig, p: Block, batch, layer_idx: int, x):
-    return _block(cfg, p, x, batch, layer_idx)[0]
+def _block_out(cfg: ModelConfig, p: Block, batch, layer_idx: int, x,
+               ffn=None):
+    """(x, aux) of one layer, x last so that ``remat`` can bind the
+    rest."""
+    x, aux, _ = _block(cfg, p, x, batch, layer_idx, ffn)
+    return x, aux
 
 
 def remat(cfg: ModelConfig, fn, x):
@@ -178,12 +206,31 @@ def remat(cfg: ModelConfig, fn, x):
     return fn(x)
 
 
-def hidden(model: TransformerLM, cfg: ModelConfig, batch):
-    x = embed_tokens(model, cfg, batch)
-    for i, lp in enumerate(model.layers):
+def run_layers(cfg: ModelConfig, layers, batch, x, ffn=None):
+    """x through ``layers`` (layer i with index i), each under ``remat``.
+    Returns (x, aux summed over the layers)."""
+    aux = 0.0
+    for i, lp in enumerate(layers):
         # partial binds this layer: the recompute runs after the loop
-        x = remat(cfg, functools.partial(_block_out, cfg, lp, batch, i), x)
-    return L.apply_norm(cfg, model.final_ln, x)
+        x, a = remat(cfg, functools.partial(_block_out, cfg, lp, batch, i,
+                                            ffn=ffn), x)
+        aux = aux + a
+    return x, aux
+
+
+def aux_dict(aux, like) -> dict:
+    """``{"aux_loss": aux}`` as a 0-dim f32 tensor on ``like``'s device
+    (an exact 0.0 where no layer has a router)."""
+    if not isinstance(aux, torch.Tensor):
+        aux = torch.tensor(aux, dtype=torch.float32, device=like.device)
+    return {"aux_loss": aux}
+
+
+def hidden(model: TransformerLM, cfg: ModelConfig, batch):
+    """(final hidden [B,T,d], {"aux_loss": ...}) like the JAX function."""
+    x = embed_tokens(model, cfg, batch)
+    x, aux = run_layers(cfg, model.layers, batch, x)
+    return L.apply_norm(cfg, model.final_ln, x), aux_dict(aux, x)
 
 
 def unembed(model: TransformerLM, cfg: ModelConfig, h):
@@ -196,7 +243,8 @@ def unembed(model: TransformerLM, cfg: ModelConfig, h):
 
 def forward(model: TransformerLM, cfg: ModelConfig, batch):
     """Returns (logits [B,T,V], aux dict) like the JAX forward."""
-    return unembed(model, cfg, hidden(model, cfg, batch)), {}
+    h, aux = hidden(model, cfg, batch)
+    return unembed(model, cfg, h), aux
 
 
 def _cache_cfg(cfg: ModelConfig) -> ModelConfig:
@@ -227,31 +275,69 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, *,
     return c
 
 
-def decode_step(model: TransformerLM, cfg: ModelConfig, cache, batch):
-    """One token a row at ragged offsets. batch: tokens [B,1], positions
-    [B,1] (= each row's cache index), optional bits [B,1] (text by
-    default) and pos3 [3,B,1]. cache: {k, v: [L,B,Tmax,Hkv,hd], bits:
-    [B,Tmax]}. Each row writes its new K/V at its own index and attends
-    the cache below it and itself, under each layer's window. Updates
-    the cache's tensors in place (the JAX function returns a new cache)
-    and returns (logits [B,1,V], cache)."""
-    B = batch["tokens"].shape[0]
-    Tmax = cache["k"].shape[2]
+def decode_mask(cache_bits, batch):
+    """The strip-cache decode's prelude, shared by every family: (pos
+    [B,1], cur [B] (each row's cache index), kv_pos [B,Tmax], q_bits
+    [B,1] (text when the batch has none), allowed [B,1,Tmax]). Row b's
+    query sees the cache's bits below cur[b], its own at cur[b] and
+    nothing above."""
+    B, Tmax = cache_bits.shape
     pos = batch["positions"]
     cur = pos[:, 0].long()
-    x = embed_tokens(model, cfg, batch)
     kv_pos = torch.arange(Tmax, dtype=torch.int32,
                           device=pos.device)[None].expand(B, Tmax)
     q_bits = batch.get("bits")
     if q_bits is None:
         q_bits = torch.full((B, 1), bam.text_token(), dtype=torch.int32,
                             device=pos.device)
-    # below cur: the cache's bits; at cur: the query's; above: none
-    cache_bits = torch.where(
-        kv_pos < cur[:, None], cache["bits"],
+    bits = torch.where(
+        kv_pos < cur[:, None], cache_bits,
         torch.where(kv_pos == cur[:, None], q_bits.expand(B, Tmax),
-                    torch.zeros_like(cache["bits"])))
-    allowed = bam.allowed_mask(q_bits, cache_bits, pos, kv_pos)
+                    torch.zeros_like(cache_bits)))
+    return pos, cur, kv_pos, q_bits, bam.allowed_mask(q_bits, bits, pos,
+                                                      kv_pos)
+
+
+def decode_layer(cfg: ModelConfig, lp: Block, x, pos, kv_pos, mask,
+                 kv_override, pos3=None, ffn=None, layer_idx: int = 0):
+    """``_block`` on one token a row: attention against the strip cache
+    (``kv_override`` writes the new K/V and returns the strips) under
+    ``mask`` [B,1,1,Tmax], then the FFN (``ffn`` as ``_block``'s)."""
+    h = L.apply_norm(cfg, lp.ln1, x)
+    attn_out, _ = L.run_attention(lp.attn, cfg, h, q_pos=pos, kv_pos=kv_pos,
+                                  mask=mask, pos3=pos3,
+                                  kv_override=kv_override)
+    if cfg.post_block_norm:
+        attn_out = L.apply_norm(cfg, lp.post_ln1, attn_out)
+    x = x + attn_out
+    h = L.apply_norm(cfg, lp.ln2, x)
+    mlp_out, _ = _default_ffn(lp, h, cfg) if ffn is None \
+        else ffn(lp, h, layer_idx)
+    if cfg.post_block_norm:
+        mlp_out = L.apply_norm(cfg, lp.post_ln2, mlp_out)
+    return x + mlp_out
+
+
+def decode_logits(model, cfg: ModelConfig, cache, x, cur, q_bits):
+    """The decode step's tail: logits [B,1,V] of the last hidden, and the
+    query's bits written into the cache at each row's index."""
+    logits = unembed(model, cfg, L.apply_norm(cfg, model.final_ln, x))
+    cache["bits"][torch.arange(x.shape[0], device=x.device), cur] = \
+        q_bits[:, 0]
+    return logits
+
+
+def decode_step(model: TransformerLM, cfg: ModelConfig, cache, batch,
+                ffn=None):
+    """One token a row at ragged offsets. batch: tokens [B,1], positions
+    [B,1] (= each row's cache index), optional bits [B,1] (text by
+    default) and pos3 [3,B,1]. cache: {k, v: [L,B,Tmax,Hkv,hd], bits:
+    [B,Tmax]}. Each row writes its new K/V at its own index and attends
+    the cache below it and itself, under each layer's window. Updates
+    the cache's tensors in place (the JAX function returns a new cache)
+    and returns (logits [B,1,V], cache). ``ffn`` as ``_block``'s."""
+    pos, cur, kv_pos, q_bits, allowed = decode_mask(cache["bits"], batch)
+    x = embed_tokens(model, cfg, batch)
     masks = {}
     for i, lp in enumerate(model.layers):
         window = layer_window(cfg, i)
@@ -268,19 +354,6 @@ def decode_step(model: TransformerLM, cfg: ModelConfig, cache, batch):
             return L.cache_update_ragged(cache["k"][i], cache["v"][i], k, v,
                                          cur)
 
-        h = L.apply_norm(cfg, lp.ln1, x)
-        attn_out, _ = L.run_attention(
-            lp.attn, cfg, h, q_pos=pos, kv_pos=kv_pos, mask=masks[window],
-            pos3=batch.get("pos3"), kv_override=kv_override)
-        if cfg.post_block_norm:
-            attn_out = L.apply_norm(cfg, lp.post_ln1, attn_out)
-        x = x + attn_out
-        h = L.apply_norm(cfg, lp.ln2, x)
-        mlp_out = _default_ffn(lp, h, cfg)
-        if cfg.post_block_norm:
-            mlp_out = L.apply_norm(cfg, lp.post_ln2, mlp_out)
-        x = x + mlp_out
-    h = L.apply_norm(cfg, model.final_ln, x)
-    logits = unembed(model, cfg, h)
-    cache["bits"][torch.arange(B, device=pos.device), cur] = q_bits[:, 0]
-    return logits, cache
+        x = decode_layer(cfg, lp, x, pos, kv_pos, masks[window], kv_override,
+                         pos3=batch.get("pos3"), ffn=ffn, layer_idx=i)
+    return decode_logits(model, cfg, cache, x, cur, q_bits), cache

@@ -70,7 +70,7 @@ def prefill_forward(model, cfg: ModelConfig, batch):
     x = T.embed_tokens(model, cfg, batch)
     ks, vs = [], []
     for i, lp in enumerate(model.layers):
-        x, (k, v) = T._block(cfg, lp, x, batch, i)
+        x, _, (k, v) = T._block(cfg, lp, x, batch, i)
         ks.append(k)
         vs.append(v)
     h = L.apply_norm(cfg, model.final_ln, x)
@@ -153,7 +153,7 @@ def paged_decode_step(model, cfg: ModelConfig, cache, batch, *,
             attn_out = L.apply_norm(cfg, lp.post_ln1, attn_out)
         x = x + attn_out
         h = L.apply_norm(cfg, lp.ln2, x)
-        mlp_out = T._default_ffn(lp, h, cfg)
+        mlp_out, _ = T._default_ffn(lp, h, cfg)
         if cfg.post_block_norm:
             mlp_out = L.apply_norm(cfg, lp.post_ln2, mlp_out)
         x = x + mlp_out

@@ -91,6 +91,16 @@ def _nll_sum(h, model, cfg: ModelConfig, labels, valid=None,
     return tot, w_all.sum()
 
 
+def _logits_nll_sum(logits, labels, valid=None):
+    """(Σ w·NLL, Σ w) over [B,T] from whole logits [B,T,V] (the families
+    without ``hidden``)."""
+    logits = logits.float()
+    nll = torch.logsumexp(logits, dim=-1) - torch.gather(
+        logits, -1, labels.long()[..., None])[..., 0]
+    w = torch.ones_like(nll) if valid is None else valid.float()
+    return (nll * w).sum(), w.sum()
+
+
 def chunked_cross_entropy(h, model, cfg: ModelConfig, labels, valid=None,
                           chunk: Optional[int] = None):
     """h: [B,T,d] final hidden. Mean NLL over ``valid`` positions, summed
@@ -128,10 +138,9 @@ def make_loss_fn(cfg: ModelConfig):
     def loss_fn(model, batch):
         valid = batch.get("valid")
         if cfg.loss_chunk and hasattr(mod, "hidden"):
-            h = mod.hidden(model, cfg, batch)
+            h, aux = mod.hidden(model, cfg, batch)
             loss = chunked_cross_entropy(h, model, cfg, batch["labels"],
                                          valid)
-            aux = {}
         else:
             logits, aux = mod.forward(model, cfg, batch)
             loss = cross_entropy(logits, batch["labels"], valid)
@@ -182,7 +191,7 @@ def make_prefill(cfg: ModelConfig):
     @torch.no_grad()
     def prefill(model, batch):
         if cfg.loss_chunk and hasattr(mod, "hidden"):
-            h = mod.hidden(model, cfg, batch)
+            h, _ = mod.hidden(model, cfg, batch)
             return T.unembed(model, cfg, h[:, -1:, :])
         logits, _ = mod.forward(model, cfg, batch)
         return logits[:, -1:, :].clone()
@@ -214,15 +223,31 @@ def make_cp_train_step(cfg: ModelConfig, layout, group,
     tokens (positions and bits travel with them) and runs the ordinary
     loss there, attention going through
     ``core.context_parallel.cp_attention`` (``method``: allgather or
-    ring; per-chunk math ``cfg.attn_impl``). The cross-entropy's sum and
-    count are all-reduced over the group, and so is every trainable
-    gradient before AdamW, so every rank takes the same update and the
-    loss and gradients equal ``make_train_step``'s on the unpermuted
-    batch."""
+    ring; per-chunk math ``cfg.attn_impl``; each layer's own window, so
+    gemma2's local/global alternation is context parallel too). The
+    cross-entropy's sum and count come from ``hidden`` and the chunked
+    unembed, or from the forward's logits for a family without
+    ``hidden`` (vlm), as the JAX loss does. They are all-reduced over the
+    group, and so is the router's aux loss (each rank's share: the MoE
+    layers all-reduce their expert statistics, ``models.moe``) and every
+    trainable gradient before AdamW, so every rank takes the same update
+    and the loss and gradients equal the JAX CP step's: for the dense
+    and vlm families also ``make_train_step``'s on the unpermuted batch;
+    for MoE the capacity drops and the aux loss are the permuted row's,
+    as in JAX. The hybrid family is refused: its SSM recurrence runs
+    along the token axis, and a rank's run of a permuted sequence is not
+    a sequence."""
     ocfg = ocfg or opt.AdamWConfig()
     if not isinstance(group, dist.ProcessGroup):
         raise TypeError(f"make_cp_train_step needs a torch.distributed "
                         f"ProcessGroup, got {type(group).__name__}")
+    if cfg.family == "hybrid":
+        raise ValueError(
+            f"{cfg.name}: context parallelism splits the token axis, and "
+            f"the hybrid's SSM recurrence runs along it, so a rank's run "
+            f"of the permuted sequence is not a sequence; the JAX CP step "
+            f"runs the SSM over the permuted order and differs from the "
+            f"plain step (ROADMAP.md queue 3)")
     G = dist.get_world_size(group)
     rank = dist.get_rank(group)
     perm_np = layout["perm"]
@@ -262,12 +287,19 @@ def make_cp_train_step(cfg: ModelConfig, layout, group,
                 "use bam.causal_bits for pure-text batches")
         params = dict(model.named_parameters())
         pb = shard(batch)
-        h = mod.hidden(model, cp_cfg, pb)
-        tot, cnt = _nll_sum(h, model, cp_cfg, pb["labels"], pb.get("valid"))
-        sums = torch.stack([tot.detach(), cnt.detach()])
+        if hasattr(mod, "hidden"):
+            h, aux = mod.hidden(model, cp_cfg, pb)
+            tot, cnt = _nll_sum(h, model, cp_cfg, pb["labels"],
+                                pb.get("valid"))
+        else:
+            logits, aux = mod.forward(model, cp_cfg, pb)
+            tot, cnt = _logits_nll_sum(logits, pb["labels"], pb.get("valid"))
+        aux = torch.as_tensor(aux.get("aux_loss", 0.0), dtype=torch.float32,
+                              device=tot.device)
+        sums = torch.stack([tot.detach(), cnt.detach(), aux.detach()])
         dist.all_reduce(sums, group=group)
         denom = torch.clamp(sums[1], min=1.0)
-        grads = _grads(tot / denom, params)
+        grads = _grads(tot / denom + aux, params)
         for name, p in params.items():
             if p.requires_grad:
                 # every rank must join every all-reduce: an unused
@@ -275,10 +307,11 @@ def make_cp_train_step(cfg: ModelConfig, layout, group,
                 if grads[name] is None:
                     grads[name] = torch.zeros_like(p)
                 dist.all_reduce(grads[name], group=group)
-        loss = sums[0] / denom
+        ce = sums[0] / denom
         _, opt_state, om = opt.update(ocfg, grads, opt_state, params,
                                       frozen_mask)
-        return model, opt_state, {"loss": loss, "ce": loss, **om}
+        return model, opt_state, {"loss": ce + sums[2], "ce": ce,
+                                  "aux_loss": sums[2], **om}
 
     return step
 

@@ -90,8 +90,9 @@ def vlm_batch(cfg, t=32, img_start=6, grid=(1, 4, 4), seed=0):
 # Configs
 # ---------------------------------------------------------------------------
 
-VARIANTS = [(a, v) for a in ARCHS for v in ("full", "reduced")] + [
-    ("gemma2-9b", "long")]
+FAMILY_ARCHS = ("deepseek-moe-16b", "qwen2-moe-a2.7b", "zamba2-2.7b")
+VARIANTS = [(a, v) for a in ARCHS + FAMILY_ARCHS
+            for v in ("full", "reduced")] + [("gemma2-9b", "long")]
 
 
 @pytest.mark.parametrize("arch,variant", VARIANTS)
@@ -106,15 +107,19 @@ def test_configs_equal_the_reference(arch, variant):
         tcfg = base.get_config(arch, reduced=reduced)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
     assert tcfg.param_count() == jcfg.param_count()
+    assert tcfg.active_param_count() == jcfg.active_param_count()
     assert tcfg.q_dim == jcfg.q_dim and tcfg.kv_dim == jcfg.kv_dim
 
 
 def test_vlm_dispatch_and_refusals():
+    from repro_torch.models import mamba2, moe
     cfg = base.get_config("qwen2-vl-7b")
     assert api.module_for(cfg) is vlm
     assert not hasattr(vlm, "hidden")
     assert isinstance(cfg.mm, base.MultimodalConfig)
-    for fam in ("moe", "ssm", "hybrid", "audio"):
+    assert api.module_for(cfg.replace(family="moe")) is moe
+    assert api.module_for(cfg.replace(family="hybrid")) is mamba2
+    for fam in ("ssm", "audio"):
         with pytest.raises(NotImplementedError, match="item 20"):
             api.module_for(cfg.replace(family=fam))
 

@@ -1,7 +1,7 @@
 """Boundaries of the PyTorch port: importing ``repro_torch`` (every
 submodule, the pipeline slice's, the schedule lint's, the SPMD
-runner's, the checkpoints', the resilience runtime's and the dense
-family's among them) and
+runner's, the checkpoints', the resilience runtime's, the dense
+family's and the MoE and hybrid families' among them) and
 ``chip_smoke.py`` loads neither ``jax`` nor ``repro`` nor ``networkx``
 nor ``msgpack`` nor ``ml_dtypes``,
 checked in a fresh interpreter because the test worker may already hold
@@ -58,6 +58,12 @@ DENSE_MODULES = (
     "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.starcoder2_7b",
     "repro_torch.configs.qwen2_vl_7b")
 
+#: the MoE and hybrid families' modules (models and configs)
+FAMILY_MODULES = (
+    "repro_torch.models.moe", "repro_torch.models.mamba2",
+    "repro_torch.configs.deepseek_moe_16b",
+    "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.zamba2_2_7b")
+
 
 def _env():
     env = dict(os.environ)
@@ -72,7 +78,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert res.returncode == 0, res.stdout + res.stderr
     names = res.stdout.split()
     assert len(names) >= 62
-    want = set(PIPELINE_MODULES) | set(RUNTIME_MODULES) | set(DENSE_MODULES)
+    want = set(PIPELINE_MODULES) | set(RUNTIME_MODULES) | \
+        set(DENSE_MODULES) | set(FAMILY_MODULES)
     assert want <= set(names), sorted(want - set(names))
 
 

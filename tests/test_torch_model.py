@@ -130,7 +130,7 @@ def test_entry_points_refuse_what_the_port_lacks():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.init(cfg)                                 # default device="cuda"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.module_for(cfg.replace(family="moe"))
+        api.module_for(cfg.replace(family="ssm"))
     model = api.init(cfg, device="cpu",
                      generator=torch.Generator().manual_seed(0))
     _, tb = _batch(cfg.vocab_size)

@@ -5,6 +5,7 @@ one gloo process group through a file store under a test's tmp_path
 returns their results by rank. Ranks import torch and the port only, so
 they start without JAX; the tests compare what they return with the JAX
 package in the test process."""
+import contextlib
 import importlib
 import multiprocessing as mp
 import queue
@@ -50,6 +51,31 @@ def run_ranks(world: int, fn: str, payload, store_dir, timeout=JOIN_TIMEOUT):
         raise RuntimeError("\n".join(errors))
     assert not any(p.is_alive() for p in procs)
     return results
+
+
+@contextlib.contextmanager
+def kept_pairs(model):
+    """Forward hooks on every MoE layer's ``mlp`` of ``model``: the
+    yielded list gets each call's (kept, routed) counts of (token, k)
+    pairs under the capacity rule, from ``moe.router_probs`` and
+    ``moe.capacity_slots`` on the layer's input."""
+    import torch
+    from repro_torch.models import moe
+    log = []
+
+    def hook(mlp, args, out):
+        h, cfg = args
+        with torch.no_grad():
+            slot, cap = moe.capacity_slots(moe.router_probs(mlp, h, cfg)[2],
+                                           cfg)
+        log.append((int((slot < cap).sum()), slot.numel()))
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, moe.MoEFFN)]
+    try:
+        yield log
+    finally:
+        for handle in handles:
+            handle.remove()
 
 
 def _rank_main(rank, world, store, fn, payload, out):
@@ -135,4 +161,58 @@ def train(rank, world, payload):
         res["indivisible"] = None
     except ValueError as e:
         res["indivisible"] = str(e)
+    return res
+
+
+def families(rank, world, payload):
+    """One ``make_cp_train_step`` step from the same weights for each
+    case of ``test_torch_cp_families`` (a port config, numpy weights, a
+    batch, a plan layout and the (method, impl) pairs to run): loss, ce,
+    aux_loss, grad_norm, the capacity dispatches' (kept, routed) pair
+    counts on this rank, and on rank 0 the parameters after the step as
+    the JAX tree; on rank 0 also the port's plain ``make_train_step`` on
+    the unpermuted batch. A case marked ``refuse`` returns the
+    ``ValueError``'s message."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import bridge
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.training import steps
+    group = dist.group.WORLD
+    ocfg = opt.AdamWConfig(**payload["ocfg"])
+    res = {}
+    for name, case in payload["cases"].items():
+        cfg = case["cfg"]
+        tb = {k: torch.from_numpy(x) for k, x in case["batch"].items()}
+        if case.get("refuse"):
+            try:
+                steps.make_cp_train_step(cfg, case["layout"], group, ocfg)
+                res[name] = None
+            except ValueError as e:
+                res[name] = str(e)
+            continue
+
+        def fresh():
+            model = bridge.from_jax_params(case["params"], cfg, device="cpu")
+            model.requires_grad_(True)
+            return model, opt.init(ocfg, dict(model.named_parameters()))
+
+        for method, impl in case["runs"]:
+            model, state = fresh()
+            step = steps.make_cp_train_step(cfg.replace(attn_impl=impl),
+                                            case["layout"], group, ocfg,
+                                            method=method)
+            with kept_pairs(model) as log:
+                model, state, met = step(model, state, tb)
+            out = {k: float(met[k]) for k in ("loss", "ce", "aux_loss",
+                                              "grad_norm")}
+            out["drops"] = (sum(k for k, _ in log), sum(n for _, n in log))
+            if rank == 0:
+                out["params"] = bridge.to_jax_params(model, cfg)
+            res[(name, method, impl)] = out
+        if rank == 0:
+            model, state = fresh()
+            _, _, met = steps.make_train_step(cfg, ocfg)(model, state, tb)
+            res[(name, "plain")] = (float(met["loss"]),
+                                    float(met["grad_norm"]))
     return res
