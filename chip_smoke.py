@@ -11,6 +11,7 @@ NVIDIA GPU. Run from the root of the repository:
     python3 chip_smoke.py --phases resilience   # phases 1, 5d
     python3 chip_smoke.py --phases dense        # phases 1, 4b
     python3 chip_smoke.py --phases moe,hybrid   # phases 1, 4c, 4d
+    python3 chip_smoke.py --phases xlstm,whisper  # phases 1, 4e, 4f
 
 Phases (any failure exits non-zero and prints no result line; the result
 line is printed only when every phase ran and passed):
@@ -146,6 +147,26 @@ line is printed only when every phase ran and passed):
    tokens against the block stepped token by token. No kernel launches
    in the phase: the counts are read after the prefill, its reruns and
    the refused call, and again after the serve loop and the SSD check.
+4e. ``xlstm``: xlstm-125m (``configs/xlstm_125m.py``, family ssm) at
+   full width and depth in bf16 (no attention, no kernel):
+   ``make_prefill`` over B 2 x T 2048 (32 mLSTM chunks of 64, 2048 sLSTM
+   steps): ms, peak and a profiled busy share; the serve loop, 64 greedy
+   ticks at B 2 (ms a tick); in f32 one full-width mLSTM layer's chunked
+   form against the parallel one at T 2048 (within ``XL_MLSTM_REL`` of
+   max |h|) and 16 tokens fed one by one through ``decode_step``
+   against the forward's logits (|d| <= 2e-3 (1 + |l|), the reference's
+   ``test_decode_matches_forward`` rule); 2 AdamW steps of
+   ``make_train_step`` at B 1 x T 2048, every parameter trainable (ms,
+   peak, finite losses); ``make_cp_train_step``'s refusal on a
+   world-size-1 gloo group. Launch counts are zeroed before and read
+   after each path: every count must be 0.
+4f. ``whisper``: whisper-base (``configs/whisper_base.py``, family audio)
+   at full width and depth in bf16 (6 + 6 layers, plain attention, no
+   kernel): the forward over B 4 with 1500 encoder frames and 448
+   decoder tokens (ms, peak); ``prefill_cross``, then 64 greedy ticks at
+   B 4 (ms a tick); in f32 16 decode ticks against the forward's logits
+   (the same rule); 2 AdamW steps at B 4 x 448 (ms, peak, finite
+   losses). Every launch count 0 after each path.
 5. Train: 3 steps of ``make_mllm_train_step`` on
    ``build_paper_mllm("vlm", llm_size="M", vision_size="S")`` (a frozen
    40-layer EVA-CLIP-S-width encoder, a trainable linear projector, the
@@ -285,7 +306,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("kernels", "compact", "serving", "dense", "moe", "hybrid",
-          "train", "pp", "spmd", "resilience", "cp")
+          "xlstm", "whisper", "train", "pp", "spmd", "resilience", "cp")
 KERNEL_KEYS = ("K1", "K1s", "K1c", "K2", "K2c", "K3", "K3c", "K4")
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -2617,6 +2638,362 @@ def hybrid_ssd_check(smoke: Smoke, cfg):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4e: the ssm family (xlstm-125m)
+# ---------------------------------------------------------------------------
+
+XL_B, XL_T = 2, 2048          # the prefill: 32 chunks of 64
+XL_TICKS = 64                 # the serve loop's ticks
+XL_DECODE = 16                # f32 decode-vs-forward tokens
+XL_MLSTM_REL = 1e-4           # f32 chunked vs parallel mLSTM, of max |h|
+DECODE_TOL = 2e-3             # |d| <= 2e-3 + 2e-3 |forward|, the reference's
+
+
+def no_launches(smoke: Smoke, what: str) -> dict:
+    """Read the launch counts and check that they are all zero (these
+    families have no kernel: nothing may launch one unseen)."""
+    counts = kernel_counts()
+    smoke.check(not any(counts.values()),
+                f"{what}: no kernel launched ({counts})")
+    return counts
+
+
+def decode_close(got, want) -> tuple:
+    """(max |d|, whether |d| <= DECODE_TOL (1 + |want|) everywhere)."""
+    d = (got.float() - want.float()).abs()
+    return float(d.max()), bool((d <= DECODE_TOL * (1 + want.float().abs()))
+                                .all())
+
+
+def serve_ticks(torch, model, cfg, cache, first, n: int):
+    """``make_serve_step`` fed its own greedy tokens for n ticks from
+    ``first`` [B] at position 0; returns (ms per tick, tokens [B, n])."""
+    from repro_torch.training import steps
+    serve = steps.make_serve_step(cfg)
+    B = first.shape[0]
+    tok, out = first, []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(n):
+        p = torch.full((B, 1), t, dtype=torch.int32, device="cuda")
+        tok, cache = serve(model, cache, {"tokens": tok[:, None],
+                                          "positions": p})
+        out.append(tok)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, torch.stack(out, 1)
+
+
+def family_train(smoke: Smoke, cfg, batch, seed: int, label: str) -> dict:
+    """2 AdamW steps of ``make_train_step`` at full width and depth, every
+    parameter trainable: ms per step, losses, peak memory; no kernel."""
+    torch = smoke.torch
+    from repro_torch.models import api
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.training import steps
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = api.init(cfg, device="cuda", generator=gen)
+    model.requires_grad_(True)
+    named = dict(model.named_parameters())
+    ocfg = opt.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10)
+    state = opt.init(ocfg, named)
+    step = steps.make_train_step(cfg, ocfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    rows = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        model, state, met = step(model, state, batch)
+        torch.cuda.synchronize()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     "loss": float(met["loss"]),
+                     "grad_norm": float(met["grad_norm"])})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = no_launches(smoke, f"{label} train, 2 steps")
+    print(f"{label} train, full width and depth ({len(named)} tensors, "
+          f"all trainable), AdamW: " + ", ".join(
+              f"step {i} {r['ms']:.1f} ms loss {r['loss']:.4f} grad_norm "
+              f"{r['grad_norm']:.4f}" for i, r in enumerate(rows))
+          + f"; peak {peak:.2f} GiB [{smoke.smi}]", flush=True)
+    smoke.check(all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+                    for r in rows),
+                f"{label} train: losses and gradient norms finite")
+    del model, state, named
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"steps": rows, "peak_gib": peak, "launches": counts}
+
+
+def xlstm_phase(smoke: Smoke):
+    """xlstm-125m at full width and depth, bf16 (no attention, no kernel):
+    the prefill over B 2 x T 2048, its busy share, the serve loop, the
+    chunked mLSTM against the parallel one and decode against the forward
+    in f32, 2 train steps, the CP step's refusal."""
+    torch = smoke.torch
+    from repro_torch.models import api
+    from repro_torch.training import steps
+
+    t_phase = time.perf_counter()
+    cfg = full_config("xlstm-125m")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    model = api.init(cfg, device="cuda", generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {n_params / 1e6:.1f} M parameters ({cfg.num_layers}"
+          f" blocks, sLSTM at {cfg.xlstm.slstm_at}; d {cfg.d_model}, "
+          f"{cfg.num_heads} heads; mLSTM chunk {cfg.xlstm.chunk}), bf16",
+          flush=True)
+    batch = lm_batch(torch, cfg, gen, B=XL_B, T=XL_T)
+    prefill = steps.make_prefill(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    logits = prefill(model, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    smoke.check(bool(torch.isfinite(logits).all())
+                and logits.shape == (XL_B, 1, cfg.vocab_size),
+                f"{cfg.name} bf16 prefill logits finite, shape "
+                f"{tuple(logits.shape)}")
+    ms = cuda_ms(torch, lambda: prefill(model, batch), iters=2, warmup=0)
+    print(f"{cfg.name} prefill through make_prefill, B {XL_B} x T {XL_T} "
+          f"({XL_T // cfg.xlstm.chunk} mLSTM chunks, {XL_T} sLSTM steps): "
+          f"{ms:.1f} ms, peak {peak:.2f} GiB [{smoke.smi}]", flush=True)
+    t0 = time.perf_counter()
+    busy, wall = profile_call(
+        torch, lambda: float(prefill(model, batch)[0, 0, 0]),
+        f"{cfg.name} prefill profile (device trace)", cpu=False)
+    print(f"  (the profiled call and its summary: "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    smoke.launches["xlstm"] = no_launches(
+        smoke, f"{cfg.name} prefill and its timed and profiled reruns")
+    smoke.xlstm = {"params": n_params,
+                   "prefill": {"ms": ms, "peak_gib": peak,
+                               "profile_busy_ms": busy,
+                               "profile_wall_ms": wall}}
+
+    cache = api.init_cache(cfg, XL_B, XL_TICKS, device="cuda")
+    first = batch["tokens"][:, 0]
+    with torch.no_grad():
+        tick_ms, toks = serve_ticks(torch, model, cfg, cache, first, XL_TICKS)
+    no_launches(smoke, f"{cfg.name} serve loop")
+    print(f"{cfg.name} serve loop, B {XL_B}, {XL_TICKS} ticks: {tick_ms:.2f} "
+          f"ms/tick (state {tree_bytes(cache)} bytes) [{smoke.smi}]",
+          flush=True)
+    smoke.check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                f"{cfg.name} serve loop: {XL_TICKS} in-vocab tokens a row")
+    smoke.xlstm["serve"] = {"ms_per_tick": tick_ms}
+    del model, logits, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    xlstm_f32_checks(smoke, cfg)
+    tb = lm_batch(torch, cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 10), B=1, T=XL_T)
+    smoke.xlstm["train"] = family_train(smoke, cfg, tb, SEED + 11, cfg.name)
+    xlstm_cp_refusal(smoke, cfg)
+    print(f"xlstm phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def xlstm_f32_checks(smoke: Smoke, cfg):
+    """f32, full width: one mLSTM layer's chunked form against the
+    parallel one at T 2048 (within ``XL_MLSTM_REL`` of max |h|), and the
+    full-depth model fed ``XL_DECODE`` tokens one by one through
+    ``decode_step`` against its forward's logits (the reference's rule)."""
+    torch = smoke.torch
+    from repro_torch.models import api, xlstm
+    from repro_torch.models.layers import apply_norm
+
+    c32 = cfg.replace(dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    lp = xlstm.MLSTMLayer(c32, torch.float32, "cuda", gen)
+    with torch.no_grad():
+        x = torch.randn((1, XL_T, c32.d_model), generator=gen, device="cuda")
+        q, k, v, log_i, log_f, _, _ = xlstm._mlstm_qkvif(
+            lp, c32, apply_norm(c32, lp.ln, x))
+        hc, _ = xlstm.mlstm_chunked(q, k, v, log_i, log_f, c32.xlstm.chunk)
+        hp = xlstm.mlstm_parallel(q, k, v, log_i, log_f)
+    r = rel_err(hc, hp)
+    _, dm, nh, hd = xlstm._dims(c32)
+    smoke.check(r <= XL_MLSTM_REL,
+                f"f32 {cfg.name} mLSTM layer at full width (dm {dm}, {nh} "
+                f"heads of {hd}), T {XL_T}: chunked ({XL_T // c32.xlstm.chunk}"
+                f" chunks of {c32.xlstm.chunk}) vs parallel, max |d| / max "
+                f"|h| {r:.2e} (tol {XL_MLSTM_REL})")
+    del lp, q, k, v, hc, hp
+    model = api.init(c32, device="cuda", generator=gen)
+    toks = torch.randint(0, c32.vocab_size, (XL_B, XL_DECODE), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    pos = torch.arange(XL_DECODE, dtype=torch.int32,
+                       device="cuda")[None].expand(XL_B, -1)
+    with torch.no_grad():
+        full, _ = api.forward(model, c32, {"tokens": toks, "positions": pos})
+        cache = api.init_cache(c32, XL_B, XL_DECODE, device="cuda")
+        got = []
+        for t in range(XL_DECODE):
+            lg, cache = api.decode_step(model, c32, cache, {
+                "tokens": toks[:, t:t + 1], "positions": pos[:, t:t + 1]})
+            got.append(lg[:, 0])
+    err, ok = decode_close(torch.stack(got, 1), full)
+    smoke.check(ok, f"f32 {cfg.name} full depth: decode_step over "
+                f"{XL_DECODE} tokens vs the forward, max |d| {err:.2e} "
+                f"(|d| <= {DECODE_TOL} (1 + |l|))")
+    no_launches(smoke, f"{cfg.name} f32 checks")
+    smoke.xlstm["f32"] = {"mlstm_chunked_rel": r, "decode_max_abs": err}
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def xlstm_cp_refusal(smoke: Smoke, cfg):
+    """``make_cp_train_step`` refuses xLSTM (its recurrence runs along the
+    token axis) on a world-size-1 gloo group, destroyed after."""
+    import torch.distributed as dist
+    from repro_torch.training import steps
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    refused = None
+    try:
+        steps.make_cp_train_step(cfg, {"perm": np.arange(XL_T),
+                                       "num_ranks": 1}, dist.group.WORLD)
+    except ValueError as e:
+        refused = str(e)
+    finally:
+        dist.destroy_process_group()
+    smoke.check(refused is not None and "recurrence" in refused,
+                f"{cfg.name}: make_cp_train_step refuses: {refused}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 4f: the audio family (whisper-base)
+# ---------------------------------------------------------------------------
+
+WH_B, WH_T = 4, 448           # the decoder's own context
+WH_TICKS = 64
+WH_F32_B = 2
+
+
+def whisper_batch(torch, cfg, gen, B: int, T: int, dtype):
+    """B rows: ``encoder_seq`` frame embeddings (N(0, 0.5^2)), T random
+    decoder tokens and labels at positions 0..T-1 (causal)."""
+    def draw():
+        return torch.randint(0, cfg.vocab_size, (B, T), generator=gen,
+                             device="cuda", dtype=torch.int32)
+    frames = torch.randn((B, cfg.encdec.encoder_seq, cfg.d_model),
+                         generator=gen, device="cuda") * 0.5
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None].expand(B, T)
+    return {"tokens": draw(), "labels": draw(), "positions": pos,
+            "encoder_embeds": frames.to(dtype)}
+
+
+def whisper_phase(smoke: Smoke):
+    """whisper-base at full width and depth, bf16 (plain attention, no
+    kernel): the forward over B 4 (1500 frames, 448 decoder tokens),
+    ``prefill_cross`` and the serve loop, decode against the forward in
+    f32, 2 train steps."""
+    torch = smoke.torch
+    from repro_torch.models import api, whisper
+
+    t_phase = time.perf_counter()
+    cfg = full_config("whisper-base")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    model = api.init(cfg, device="cuda", generator=gen)
+    n_params = sum(p.numel() for p in model.parameters())
+    e = cfg.encdec
+    print(f"{cfg.name}: {n_params / 1e6:.1f} M parameters ("
+          f"{e.num_encoder_layers} + {cfg.num_layers} layers, d "
+          f"{cfg.d_model}, {cfg.num_heads} heads of {cfg.head_dim}, "
+          f"{e.encoder_seq} frames), bf16", flush=True)
+    batch = whisper_batch(torch, cfg, gen, WH_B, WH_T, torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            return api.forward(model, cfg, batch)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    logits = fwd()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    smoke.check(bool(torch.isfinite(logits).all())
+                and logits.shape == (WH_B, WH_T, cfg.vocab_size),
+                f"{cfg.name} bf16 forward logits finite, shape "
+                f"{tuple(logits.shape)}")
+    del logits
+    ms = cuda_ms(torch, fwd, iters=3, warmup=1)
+    print(f"{cfg.name} forward, B {WH_B}: {e.encoder_seq} frames, {WH_T} "
+          f"decoder tokens: {ms:.1f} ms, peak {peak:.2f} GiB [{smoke.smi}]",
+          flush=True)
+    smoke.launches["whisper"] = no_launches(
+        smoke, f"{cfg.name} forward and its timed reruns")
+    smoke.whisper = {"params": n_params,
+                     "forward": {"ms": ms, "peak_gib": peak}}
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = whisper.prefill_cross(
+            model, cfg, api.init_cache(cfg, WH_B, WH_TICKS, device="cuda"),
+            batch["encoder_embeds"])
+        torch.cuda.synchronize()
+        cross_ms = (time.perf_counter() - t0) * 1e3
+        tick_ms, toks = serve_ticks(torch, model, cfg, cache,
+                                    batch["tokens"][:, 0], WH_TICKS)
+    no_launches(smoke, f"{cfg.name} prefill_cross and the serve loop")
+    print(f"{cfg.name} prefill_cross {cross_ms:.1f} ms, then {WH_TICKS} "
+          f"ticks at B {WH_B}: {tick_ms:.2f} ms/tick (cache "
+          f"{tree_bytes(cache)} bytes) [{smoke.smi}]", flush=True)
+    smoke.check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+                f"{cfg.name} serve loop: {WH_TICKS} in-vocab tokens a row")
+    smoke.whisper["serve"] = {"prefill_cross_ms": cross_ms,
+                              "ms_per_tick": tick_ms}
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    whisper_f32_decode(smoke, cfg)
+    tb = whisper_batch(torch, cfg, torch.Generator(device="cuda").manual_seed(
+        SEED + 14), WH_B, WH_T, torch.bfloat16)
+    smoke.whisper["train"] = family_train(smoke, cfg, tb, SEED + 15,
+                                          cfg.name)
+    print(f"whisper phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
+def whisper_f32_decode(smoke: Smoke, cfg):
+    """f32, full width and depth: ``prefill_cross``, then ``XL_DECODE``
+    tokens one by one through ``decode_step`` against the forward's
+    logits over the same frames (the reference's rule)."""
+    torch = smoke.torch
+    from repro_torch.models import api, whisper
+
+    c32 = cfg.replace(dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    model = api.init(c32, device="cuda", generator=gen)
+    b = whisper_batch(torch, c32, gen, WH_F32_B, XL_DECODE, torch.float32)
+    with torch.no_grad():
+        full, _ = api.forward(model, c32, b)
+        cache = whisper.prefill_cross(
+            model, c32, api.init_cache(c32, WH_F32_B, XL_DECODE,
+                                       device="cuda"), b["encoder_embeds"])
+        got = []
+        for t in range(XL_DECODE):
+            lg, cache = api.decode_step(model, c32, cache, {
+                "tokens": b["tokens"][:, t:t + 1],
+                "positions": b["positions"][:, t:t + 1]})
+            got.append(lg[:, 0])
+    err, ok = decode_close(torch.stack(got, 1), full)
+    smoke.check(ok, f"f32 {cfg.name} full depth: decode_step over "
+                f"{XL_DECODE} tokens vs the forward, max |d| {err:.2e} "
+                f"(|d| <= {DECODE_TOL} (1 + |l|))")
+    no_launches(smoke, f"{cfg.name} f32 decode check")
+    smoke.whisper["f32_decode_max_abs"] = err
+    del model, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Phases 5 and 6: the train path
 # ---------------------------------------------------------------------------
 
@@ -3901,15 +4278,17 @@ def profile_step(torch, step, model, state, batch, label: str):
         f"{label} profile, 1 step")
 
 
-def profile_call(torch, fn, label: str):
+def profile_call(torch, fn, label: str, cpu: bool = True):
     """fn() under torch.profiler (it must end by reading a result from
     the card): prints the wall time, the device busy share and the top
-    kernels by device time; returns (busy ms, wall ms)."""
+    kernels by device time; returns (busy ms, wall ms). ``cpu=False``
+    traces the device alone: fewer events to summarise where a call
+    issues many small host ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         wall_us = (time.perf_counter() - t0) * 1e6
@@ -4183,6 +4562,14 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "hybrid" in phases:
         hybrid_phase(smoke)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "xlstm" in phases:
+        xlstm_phase(smoke)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "whisper" in phases:
+        whisper_phase(smoke)
         gc.collect()
         torch.cuda.empty_cache()
     if "train" in phases:

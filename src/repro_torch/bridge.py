@@ -4,9 +4,10 @@ same weights and read each other's checkpoints.
 
 The JAX tree stacks every layer's leaves on a leading axis
 (``layers.stacked_init``); the port holds one module per layer, so that
-axis is unstacked into ``layers.<i>.<path>``. The stacked groups are
-``layers`` and, for deepseek-moe's leading dense layers, ``dense_layers``
-(``STACKED``); each has its own depth (``stack_depths``). Both packages
+axis is unstacked into ``layers.<i>.<path>``. The stacked groups
+(``STACKED``) are ``layers``, deepseek-moe's leading ``dense_layers``,
+xLSTM's ``mlstm_layers`` and ``slstm_layers`` and Whisper's encoder
+``enc_layers``; each has its own depth (``stack_depths``). Both packages
 keep weights as [d_in, d_out], so every other leaf is a plain copy.
 Loads are strict: every parameter on both sides must be matched.
 
@@ -41,12 +42,24 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 #: the tree's groups of layers stacked on a leading axis
-STACKED = ("layers", "dense_layers")
+STACKED = ("layers", "dense_layers", "mlstm_layers", "slstm_layers",
+           "enc_layers")
 
 
 def stack_depths(cfg: ModelConfig) -> Dict[str, int]:
     """{stacked group: depth} of a config's tree: an MoE config's dense
-    prefix is ``dense_layers``, the rest ``layers``."""
+    prefix is ``dense_layers``, the rest ``layers``; xLSTM's mLSTM and
+    sLSTM blocks (at least one mLSTM, as the reference keeps); Whisper's
+    encoder and decoder."""
+    if cfg.family == "ssm":
+        n_s = len(cfg.xlstm.slstm_at)
+        depths = {"mlstm_layers": max(cfg.num_layers - n_s, 1)}
+        if n_s:
+            depths["slstm_layers"] = n_s
+        return depths
+    if cfg.family == "audio":
+        return {"layers": cfg.num_layers,
+                "enc_layers": cfg.encdec.num_encoder_layers}
     fd = cfg.moe.first_dense_layers if cfg.moe is not None else 0
     if fd:
         return {"layers": cfg.num_layers - fd, "dense_layers": fd}
@@ -127,7 +140,7 @@ def mllm_from_jax_params(tree: Mapping, mllm, device="cuda"):
 
 def _split_layer(name: str) -> Tuple[List[str], Optional[int]]:
     """'llm.layers.3.attn.wq' -> (['llm', 'layers', 'attn', 'wq'], 3);
-    likewise under ``dense_layers``."""
+    likewise under every ``STACKED`` group."""
     parts = name.split(".")
     for k in range(len(parts) - 1):
         if parts[k] in STACKED and parts[k + 1].isdigit():
@@ -137,8 +150,8 @@ def _split_layer(name: str) -> Tuple[List[str], Optional[int]]:
 
 def jax_tree(named: Mapping[str, torch.Tensor]) -> dict:
     """{port name: tensor} -> the reference's nested tree: names nest on
-    their dots and the layers of ``<a>.layers.<i>.<b>`` (or
-    ``dense_layers``) stack again into one ``Stacked`` leaf at
+    their dots and the layers of ``<a>.layers.<i>.<b>`` (or another
+    ``STACKED`` group) stack again into one ``Stacked`` leaf at
     ``a/layers/b`` (layer order, which must be contiguous)."""
     tree: dict = {}
     stacks: Dict[Tuple[str, ...], Dict[int, torch.Tensor]] = {}

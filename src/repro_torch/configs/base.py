@@ -55,6 +55,26 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block-mix config."""
+
+    slstm_at: Tuple[int, ...] = ()   # layer indices that are sLSTM; rest mLSTM
+    proj_factor_m: float = 2.0       # mLSTM up-projection factor
+    proj_factor_s: float = 4.0 / 3.0  # sLSTM FFN factor
+    conv_kernel: int = 4
+    chunk: int = 64                  # chunkwise-parallel mLSTM chunk length
+
+
+@dataclass(frozen=True)
+class EncDecConfig:
+    """Encoder-decoder (whisper-style) extras."""
+
+    num_encoder_layers: int = 0
+    encoder_seq: int = 1500   # frames after the (stubbed) conv frontend
+    max_source_positions: int = 1500
+
+
+@dataclass(frozen=True)
 class MultimodalConfig:
     """Multimodal (vlm) composition extras; the frontend is stubbed."""
 
@@ -89,12 +109,11 @@ class ModelConfig:
     post_block_norm: bool = False
     embed_scale: bool = False
 
-    # family extras: xlstm and encdec are objects in the JAX package and
-    # unported here (ROADMAP.md item 20, the ssm and audio families)
+    # family extras
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    xlstm: Any = None
-    encdec: Any = None
+    xlstm: Optional[XLSTMConfig] = None
+    encdec: Optional[EncDecConfig] = None
     mm: Optional[MultimodalConfig] = None
     attn_layer_period: int = 0
     shared_attn: bool = False
@@ -130,8 +149,8 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def param_count(self) -> int:
-        """Parameters of the families the port runs (dense, vlm, moe,
-        hybrid), by the reference's formula."""
+        """Parameters by the reference's analytic formula, for every
+        family."""
         d, L, V = self.d_model, self.num_layers, self.vocab_size
         attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
         if self.family == "moe" and self.moe is not None:
@@ -143,6 +162,8 @@ class ModelConfig:
             n_moe = L - m.first_dense_layers
             layers = n_moe * (attn + ff_rout + ff_shared + router) + \
                 m.first_dense_layers * (attn + dense_ff)
+        elif self.family == "ssm":
+            layers = L * self._xlstm_layer_params()
         elif self.family == "hybrid":
             ssm_p = self._mamba_layer_params()
             n_attn = (L // self.attn_layer_period) if self.attn_layer_period \
@@ -155,6 +176,12 @@ class ModelConfig:
         else:
             ff = 3 * d * self.d_ff if self.act == "silu" else 2 * d * self.d_ff
             layers = L * (attn + ff)
+            if self.encdec is not None:
+                enc_attn = 4 * d * d
+                enc_ff = 2 * d * self.d_ff
+                cross = 4 * d * d
+                layers += self.encdec.num_encoder_layers * (enc_attn + enc_ff)
+                layers += L * cross  # decoder cross-attention
         embed = V * d * (1 if self.tie_embeddings else 2)
         return int(layers + embed)
 
@@ -183,6 +210,20 @@ class ModelConfig:
         conv = s.d_conv * (di + 2 * s.d_state)
         out = di * d
         return in_proj + conv + out + di + 2 * nh
+
+    def _xlstm_layer_params(self) -> int:
+        x = self.xlstm or XLSTMConfig()
+        d = self.d_model
+        dm = int(d * x.proj_factor_m)
+        n_s = len(x.slstm_at)
+        n_m = self.num_layers - n_s
+        # mLSTM: up + gate-up, q/k/v, down (i/f gates are [dm, nh]: tiny)
+        m = 2 * d * dm + 3 * dm * dm + dm * d
+        # sLSTM: zifo input weights, block-diag recurrent, gated FFN
+        dff = int(d * x.proj_factor_s)
+        hd = d // max(self.num_heads, 1)
+        sl = 4 * d * d + 4 * hd * d + 3 * d * dff
+        return int((m * n_m + sl * n_s) / max(self.num_layers, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +277,8 @@ def _ensure_imported() -> None:
     # config modules register themselves on import
     from repro_torch.configs import (  # noqa: F401
         deepseek_moe_16b, gemma2_9b, qwen2_5_14b, qwen2_moe_a2_7b,
-        qwen2_vl_7b, qwen3_1_7b, starcoder2_7b, zamba2_2_7b)
+        qwen2_vl_7b, qwen3_1_7b, starcoder2_7b, whisper_base, xlstm_125m,
+        zamba2_2_7b)
 
 
 # Which (arch, shape) pairs are skipped and why (the reference's

@@ -1,7 +1,6 @@
 """Uniform model API — dispatch on ``cfg.family`` (port of
-``repro.models.api``). The port has the dense, vlm, moe and hybrid
-families; ssm (xLSTM) and audio (Whisper) are ROADMAP.md queue 1 item 20
-("Other backbones").
+``repro.models.api``): dense, vlm, moe, hybrid (zamba2), ssm (xLSTM) and
+audio (Whisper).
 
     init(cfg, device=, generator=)                     -> model
     forward(model, cfg, batch)                         -> (logits, aux)
@@ -11,17 +10,18 @@ families; ssm (xLSTM) and audio (Whisper) are ROADMAP.md queue 1 item 20
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mamba2, moe, transformer, vlm
+from repro_torch.models import (mamba2, moe, transformer, vlm, whisper,
+                                xlstm)
 
-_FAMILIES = {"dense": transformer, "moe": moe, "hybrid": mamba2,
-             "vlm": vlm}
+_FAMILIES = {"dense": transformer, "moe": moe, "ssm": xlstm,
+             "hybrid": mamba2, "audio": whisper, "vlm": vlm}
 
 
 def module_for(cfg: ModelConfig):
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported yet: "
-            f"ROADMAP.md queue 1 item 20 (other backbones)")
+            f"unknown model family {cfg.family!r} ({cfg.name}); the port "
+            f"has {sorted(_FAMILIES)}")
     return _FAMILIES[cfg.family]
 
 

@@ -211,8 +211,11 @@ def attn_project_qkv(p: Attention, cfg: ModelConfig, x_q, x_kv):
 
 def run_attention(p: Attention, cfg: ModelConfig, x, *, q_pos, mask=None,
                   mask_fn=None, kv_pos=None, pos3=None, window: int = 0,
-                  bits=None, rope: bool = True, kv_override=None):
-    """Self-attention block over x [B,T,d]. Returns (out [B,T,d], (k, v))
+                  bits=None, rope: bool = True, kv_override=None,
+                  x_kv=None):
+    """Attention block over x [B,T,d]: self-attention, or cross-attention
+    to ``x_kv`` [B,Tk,d] when it is given (Whisper's decoder; plain path
+    only, with ``mask`` and ``kv_pos``). Returns (out [B,T,d], (k, v))
     with k/v the projected (and, with ``rope``, roped) [B,T,Hkv,hd] the
     serving prefill keeps, or the layer's cache after ``kv_override``.
 
@@ -239,7 +242,7 @@ def run_attention(p: Attention, cfg: ModelConfig, x, *, q_pos, mask=None,
         raise ValueError(f"attn_impl={cfg.attn_impl!r}; the port has "
                          f"{ATTN_IMPLS} (bam_interpret is JAX-only)")
     b, tq, _ = x.shape
-    q, k, v = attn_project_qkv(p, cfg, x, x)
+    q, k, v = attn_project_qkv(p, cfg, x, x if x_kv is None else x_kv)
     if rope:
         if pos3 is not None and cfg.mm is not None and cfg.mm.mrope_sections:
             q = apply_mrope(q, pos3, cfg.mm.mrope_sections, cfg.rope_theta)

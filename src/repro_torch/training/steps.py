@@ -208,6 +208,10 @@ _CP_TOKEN_KEYS = {"tokens": 1, "labels": 1, "positions": 1, "bits": 1,
                   "valid": 1, "inputs_embeds": 1, "embed_mask": 1,
                   "pos3": 2}
 
+#: families whose recurrence runs along the token axis -> what it is
+_CP_RECURRENCE = {"hybrid": "the hybrid's SSM recurrence",
+                  "ssm": "xLSTM's mLSTM/sLSTM recurrence"}
+
 
 def make_cp_train_step(cfg: ModelConfig, layout, group,
                        ocfg: Optional[opt.AdamWConfig] = None, *,
@@ -234,20 +238,24 @@ def make_cp_train_step(cfg: ModelConfig, layout, group,
     and the loss and gradients equal the JAX CP step's: for the dense
     and vlm families also ``make_train_step``'s on the unpermuted batch;
     for MoE the capacity drops and the aux loss are the permuted row's,
-    as in JAX. The hybrid family is refused: its SSM recurrence runs
-    along the token axis, and a rank's run of a permuted sequence is not
-    a sequence."""
+    as in JAX. Whisper's ``encoder_embeds`` is not on the token axis:
+    every rank keeps it whole and runs the encoder over all frames, and
+    the decoder's self-attention goes through ``cp_attention``, so its
+    loss and gradients equal the plain step's too. The hybrid and xLSTM
+    families are refused (``_CP_RECURRENCE``): a recurrence runs along
+    the token axis, and a rank's run of a permuted sequence is not a
+    sequence."""
     ocfg = ocfg or opt.AdamWConfig()
     if not isinstance(group, dist.ProcessGroup):
         raise TypeError(f"make_cp_train_step needs a torch.distributed "
                         f"ProcessGroup, got {type(group).__name__}")
-    if cfg.family == "hybrid":
+    if cfg.family in _CP_RECURRENCE:
         raise ValueError(
             f"{cfg.name}: context parallelism splits the token axis, and "
-            f"the hybrid's SSM recurrence runs along it, so a rank's run "
+            f"{_CP_RECURRENCE[cfg.family]} runs along it, so a rank's run "
             f"of the permuted sequence is not a sequence; the JAX CP step "
-            f"runs the SSM over the permuted order and differs from the "
-            f"plain step (ROADMAP.md queue 3)")
+            f"runs it over the permuted order and differs from the plain "
+            f"step (ROADMAP.md queue 3)")
     G = dist.get_world_size(group)
     rank = dist.get_rank(group)
     perm_np = layout["perm"]

@@ -14,13 +14,18 @@ step from the same weights:
   (``capacity_factor`` 0.5): the aux loss and the drops are the whole
   permuted row's, as in JAX, through the port's all-reduced expert
   histogram and all-gathered expert ids;
-- reduced zamba2, which the port refuses: the JAX CP step runs the SSM
-  over the permuted order and differs from its own plain step (the test
-  holds that difference, which is the reason for the refusal).
+- reduced whisper-base, whose decoder self-attention goes through
+  ``cp_attention`` while every rank keeps the frame embeddings whole and
+  runs the encoder over all of them (the same T 64 input plus
+  ``encoder_embeds`` from the same generator);
+- reduced zamba2 and reduced xlstm-125m, which the port refuses: the JAX
+  CP step runs the recurrence (the SSM; the mLSTM and sLSTM) over the
+  permuted order and differs from its own plain step (the test holds
+  that difference, which is the reason for the refusal).
 
 Tolerances: loss, ce, aux_loss and grad_norm within 1e-5 relative of the
-JAX CP step's (and, for gemma2 and qwen2-vl, of the port's and JAX's
-plain steps'); the parameters after the step within 1e-5 of max
+JAX CP step's (and, for gemma2, qwen2-vl and whisper, of the port's and
+JAX's plain steps'); the parameters after the step within 1e-5 of max
 |parameter| (AdamW eps 1e-3, for the reason ``test_torch_moe`` gives).
 """
 import dataclasses
@@ -52,10 +57,12 @@ from .torch_cp_ranks import run_ranks
 REL = 1e-5
 OCFG = dict(lr=1e-3, warmup_steps=1, total_steps=5, eps=1e-3)
 ARCHS = {"gemma2": "gemma2-9b", "qwen2-vl": "qwen2-vl-7b",
-         "deepseek-moe": "deepseek-moe-16b", "zamba2": "zamba2-2.7b"}
+         "deepseek-moe": "deepseek-moe-16b", "whisper": "whisper-base",
+         "zamba2": "zamba2-2.7b", "xlstm": "xlstm-125m"}
 RUNS = {"gemma2": [("allgather", "xla"), ("ring", "bam_kernel")],
         "qwen2-vl": [("allgather", "xla"), ("ring", "xla")],
-        "deepseek-moe": [("allgather", "xla"), ("ring", "bam_kernel")]}
+        "deepseek-moe": [("allgather", "xla"), ("ring", "bam_kernel")],
+        "whisper": [("allgather", "xla"), ("ring", "bam_kernel")]}
 CP_RUNS = [(n, m, i) for n, runs in RUNS.items() for m, i in runs]
 
 
@@ -90,6 +97,11 @@ def _inputs(name):
     batch = {"tokens": rng.integers(0, vocab, (2, T)).astype(np.int32),
              "labels": rng.integers(0, vocab, (2, T)).astype(np.int32),
              "positions": np.stack([pos] * 2), "bits": np.stack([bits] * 2)}
+    if name == "whisper":
+        cfg = _cfg(base, name)
+        batch["encoder_embeds"] = (rng.normal(size=(
+            2, cfg.encdec.encoder_seq, cfg.d_model)) * 0.5).astype(
+                np.float32)
     layout = plan_context(bits, pos, 2, block_size=8,
                           method="lpt").apply(T)
     return batch, layout
@@ -182,10 +194,12 @@ def test_cp_step_matches_jax_cp_step(results, name, method, impl):
         assert got[0]["aux_loss"] > 0
 
 
-@pytest.mark.parametrize("name", ["gemma2", "qwen2-vl"])
+@pytest.mark.parametrize("name", ["gemma2", "qwen2-vl", "whisper"])
 def test_cp_step_equals_the_plain_steps(results, name):
-    """Items 25 and 26 of the port's faults: the CP step's loss and
-    grad_norm equal the port's own plain step's and JAX's plain step's."""
+    """Items 25 and 26 of the port's faults, and Whisper, whose decoder
+    would attend over each rank's run alone if its self-attention missed
+    ``cp_attention``: the CP step's loss and grad_norm equal the port's
+    own plain step's and JAX's plain step's."""
     port, ref = results
     plain_loss, plain_norm = port[0][(name, "plain")]
     for key, want in (("loss", ref[name]["plain"]["loss"]),
@@ -208,6 +222,19 @@ def test_hybrid_cp_is_refused(results):
     # is not its plain step (ROADMAP.md queue 3 records the numbers)
     cp, plain = ref["zamba2"]["cp"], ref["zamba2"]["plain"]
     assert abs(cp["loss"] - plain["loss"]) > 1e-4 * abs(plain["loss"])
+
+
+def test_xlstm_cp_is_refused(results):
+    port, ref = results
+    for r in (0, 1):
+        assert port[r]["xlstm"] is not None
+        assert "recurrence runs along it" in port[r]["xlstm"]
+    # the reason: JAX's CP step runs the mLSTM and sLSTM over the permuted
+    # order (ROADMAP.md queue 3 records the numbers)
+    cp, plain = ref["xlstm"]["cp"], ref["xlstm"]["plain"]
+    assert abs(cp["loss"] - plain["loss"]) > 1e-4 * abs(plain["loss"])
+    assert abs(cp["grad_norm"] - plain["grad_norm"]) > \
+        1e-3 * plain["grad_norm"]
 
 
 if __name__ == "__main__":

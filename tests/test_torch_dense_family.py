@@ -112,16 +112,15 @@ def test_configs_equal_the_reference(arch, variant):
 
 
 def test_vlm_dispatch_and_refusals():
-    from repro_torch.models import mamba2, moe
+    from repro_torch.models import mamba2, moe, whisper, xlstm
     cfg = base.get_config("qwen2-vl-7b")
     assert api.module_for(cfg) is vlm
     assert not hasattr(vlm, "hidden")
     assert isinstance(cfg.mm, base.MultimodalConfig)
     assert api.module_for(cfg.replace(family="moe")) is moe
     assert api.module_for(cfg.replace(family="hybrid")) is mamba2
-    for fam in ("ssm", "audio"):
-        with pytest.raises(NotImplementedError, match="item 20"):
-            api.module_for(cfg.replace(family=fam))
+    assert api.module_for(cfg.replace(family="ssm")) is xlstm
+    assert api.module_for(cfg.replace(family="audio")) is whisper
 
 
 # ---------------------------------------------------------------------------

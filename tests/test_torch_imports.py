@@ -1,7 +1,7 @@
 """Boundaries of the PyTorch port: importing ``repro_torch`` (every
 submodule, the pipeline slice's, the schedule lint's, the SPMD
 runner's, the checkpoints', the resilience runtime's, the dense
-family's and the MoE and hybrid families' among them) and
+family's and the MoE, hybrid, xLSTM and Whisper families' among them) and
 ``chip_smoke.py`` loads neither ``jax`` nor ``repro`` nor ``networkx``
 nor ``msgpack`` nor ``ml_dtypes``,
 checked in a fresh interpreter because the test worker may already hold
@@ -58,11 +58,14 @@ DENSE_MODULES = (
     "repro_torch.configs.qwen2_5_14b", "repro_torch.configs.starcoder2_7b",
     "repro_torch.configs.qwen2_vl_7b")
 
-#: the MoE and hybrid families' modules (models and configs)
+#: the MoE, hybrid, xLSTM and Whisper families' modules (models and
+#: configs)
 FAMILY_MODULES = (
     "repro_torch.models.moe", "repro_torch.models.mamba2",
     "repro_torch.configs.deepseek_moe_16b",
-    "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.zamba2_2_7b")
+    "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.zamba2_2_7b",
+    "repro_torch.models.xlstm", "repro_torch.models.whisper",
+    "repro_torch.configs.xlstm_125m", "repro_torch.configs.whisper_base")
 
 
 def _env():

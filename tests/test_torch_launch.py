@@ -5,8 +5,9 @@ Both launchers start from the same weights: the port's ``init_lm`` and
 ``init_mllm`` are replaced by the JAX init at the same seed carried over
 by ``repro_torch.bridge``, and both read equal synthetic streams (the
 same numpy draws). The logged losses must agree within LOSS_RTOL at
-every step for ``--mllm vlm --reduced`` (also with ``--train-llm``) and
-``--arch qwen3-1.7b --reduced``. ``--plan-out`` writes the JAX launcher's
+every step for ``--mllm vlm --reduced`` (also with ``--train-llm``),
+``--arch qwen3-1.7b --reduced`` and ``--arch xlstm-125m --reduced
+--vocab 64``. ``--plan-out`` writes the JAX launcher's
 plan JSON byte for byte, ``--plan`` trains under a saved plan, every
 plan passes the schedule lint gate, a corrupted plan is refused by it
 (and ``--no-lint`` lets it through), ``--spmd`` spawns the plan's 2
@@ -33,6 +34,10 @@ MLLM_ARGS = ["--mllm", "vlm", "--reduced", "--steps", "3", "--seq", "16",
              "--log-every", "0"]
 LM_ARGS = ["--arch", "qwen3-1.7b", "--reduced", "--steps", "3", "--seq",
            "16", "--batch", "2", "--log-every", "0"]
+#: the reference's own resume test's arch and argv
+#: (tests/test_resilience.py::_lm_argv)
+XLSTM_ARGS = ["--arch", "xlstm-125m", "--reduced", "--steps", "3", "--seq",
+              "16", "--batch", "2", "--vocab", "64", "--log-every", "0"]
 
 
 @pytest.fixture(autouse=True)
@@ -51,8 +56,10 @@ def _one_torch_thread():
 def jax_weights(monkeypatch):
     """The port's inits return the JAX launcher's initial weights."""
     def init_lm(cfg, args, device):
-        jp = japi.init(jax.random.PRNGKey(args.seed),
-                       jget_config(args.arch, reduced=args.reduced))
+        jcfg = jget_config(args.arch, reduced=args.reduced)
+        if args.vocab:
+            jcfg = jcfg.replace(vocab_size=args.vocab)
+        jp = japi.init(jax.random.PRNGKey(args.seed), jcfg)
         return bridge.from_jax_params(jax.tree.map(np.asarray, jp), cfg,
                                       device=device)
 
@@ -69,8 +76,8 @@ def jax_weights(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [MLLM_ARGS, MLLM_ARGS + ["--train-llm"],
-                                  LM_ARGS],
-                         ids=["vlm", "vlm-ft1", "qwen3-1.7b"])
+                                  LM_ARGS, XLSTM_ARGS],
+                         ids=["vlm", "vlm-ft1", "qwen3-1.7b", "xlstm-125m"])
 def test_launcher_logs_the_reference_losses(jax_weights, argv, capsys):
     want = jtrain.main(argv)
     got = ttrain.main(argv + ["--device", "cpu"])

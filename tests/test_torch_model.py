@@ -129,8 +129,8 @@ def test_entry_points_refuse_what_the_port_lacks():
     cfg = llm_config("M", reduced=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         api.init(cfg)                                 # default device="cuda"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.module_for(cfg.replace(family="ssm"))
+    with pytest.raises(NotImplementedError, match="unknown model family"):
+        api.module_for(cfg.replace(family="nope"))
     model = api.init(cfg, device="cpu",
                      generator=torch.Generator().manual_seed(0))
     _, tb = _batch(cfg.vocab_size)

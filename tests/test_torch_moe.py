@@ -318,7 +318,5 @@ def test_shapes_and_skips_equal_the_reference():
         for shape in jbase.SHAPES:
             assert base.pair_skip_reason(arch, shape) == \
                 jbase.pair_skip_reason(arch, shape)
-    # the port registers every arch of the reference but the ssm and
-    # audio families' (ROADMAP.md item 20)
-    assert base.list_archs() == sorted(
-        set(jbase.list_archs()) - {"xlstm-125m", "whisper-base"})
+    # the port registers every arch of the reference
+    assert base.list_archs() == jbase.list_archs()
