@@ -11,6 +11,7 @@ NVIDIA GPU. Run from the root of the repository:
     python3 chip_smoke.py --phases resilience   # phases 1, 5d
     python3 chip_smoke.py --phases dense        # phases 1, 4b
     python3 chip_smoke.py --phases moe,hybrid   # phases 1, 4c, 4d
+    python3 chip_smoke.py --phases kernels,hybrid,gemma2  # 1-2c, 4d, 4g
     python3 chip_smoke.py --phases xlstm,whisper  # phases 1, 4e, 4f
 
 Phases (any failure exits non-zero and prints no result line; the result
@@ -23,9 +24,11 @@ line is printed only when every phase ran and passed):
    of the built ``bam_fwd``, ``bam_bwd_dq`` and ``bam_bwd_dkv``
    libraries, ``HGMMA`` instructions counted per kernel instantiation
    and printed beside ptxas' registers and spills; a check per library
-   fails unless each of its bf16 instantiations (mangled names holding
-   ``__nv_bfloat16``: 8 of K1, 4 of K2, 4 of K3) has HGMMA and no spill,
-   and another unless none of K4's 4 instantiations spills.
+   fails unless each of its wgmma-body instantiations (bf16 at hd 64
+   and 128, ``*_mma_kernel``: 8 of K1, 4 of K2, 4 of K3) has HGMMA and no
+   spill, another unless as many bf16 SIMT-body instantiations (hd 80
+   and 256) are there without HGMMA (their spills printed), and another
+   unless none of K4's 6 instantiations (hd 64, 128, 256) spills.
 2. Hold each kernel against its plain PyTorch version on the card at its
    main path's shapes, printing max abs error beside its tolerance,
    kernel/plain/library ms and the roofline bound:
@@ -50,7 +53,9 @@ line is printed only when every phase ran and passed):
      smoke traffic's rows (text 1500, multimodal 672, text 700, one empty
      row; 32/8 heads of 128), a long context (rows of 8192, 4096, 1024
      and 17 tokens), 16 rows of 128-4096 tokens, softcap 50 / window 256,
-     head_dim 64, GQA 1:1 (32/32) and 8:1 (64/8): each within
+     head_dim 64, GQA 1:1 (32/32) and 8:1 (64/8), head_dim 256 on a pool
+     of gemma2-9b's shape (rows of 256-1024 text tokens, 8 KV heads, 2
+     query heads each, softcap 50, window 4096 and 0): each within
      ``compare`` of its plain version, empty rows exactly 0, a second run
      torch.equal to the first; bf16 times (warm and cold L2, and with one
      split per row) beside SDPA over the gathered pages and the bound;
@@ -61,6 +66,17 @@ line is printed only when every phase ran and passed):
      against one 1024-key ring chunk with rows that see no key there
      (exactly m = -1e30, l = 0, acc = 0); the four chunks' stats combined
      against one K1 residual call; K2 and K3 at Tq 1024, Tk 4096.
+2c. (part of ``kernels``) head sizes 80 and 256, on the SIMT bodies:
+   K1 (out, residual, stats), K1c (three modes), K2, K2c, K3 and K3c at
+   gemma2-9b's heads (q [1,2048,16,256], k/v 8 heads, softcap 50, window
+   4096) and zamba2-2.7b's (q [1,2048,32,80], k/v 32 heads), bf16 and
+   f32, on ``lm_batch``'s bits (512 text, 1024 modality-1, 512 text):
+   each within ``compare`` (``compare_stats``) of its plain version, the
+   compacted grid torch.equal to the dense one, K3 bit-identical on a
+   second run, ``kernel_body`` "simt"; kernel, plain, SDPA and bound ms
+   of each in both dtypes (K4 at 256 is one of phase 2's K4 cases). On
+   CUDA tensors K1-K3 refuse head_dim 96 and K4 96, 80, and at
+   256 more than 16 heads per KV head and 64-slot pages.
 2b. ``compact``: the compacted grid (a ``BlockMask`` built at the
    kernels' 64 x 32 tile, walked as CSR rows).
    - At the vlm layout (q [1,1600,32,128], k/v [1,1600,8,128]) in bf16
@@ -140,13 +156,32 @@ line is printed only when every phase ran and passed):
    prefill (K1 4 launches), its 60 experts stacked as 64.
 4d. ``hybrid``: zamba2-2.7b (``configs/zamba2_2_7b.py``, family hybrid)
    at full width and depth in bf16 (2.42 B parameters): ``make_prefill``
-   over B 1 x T 2048 with multimodal bits on the plain attention path
-   (its head_dim 80 is no kernel head size: the bam_kernel path must
-   raise the wrapper's ValueError), ms and peak; the serve loop of phase
-   4b; one Mamba2 block at full width in f32, the chunked SSD over 512
-   tokens against the block stepped token by token. No kernel launches
-   in the phase: the counts are read after the prefill, its reruns and
-   the refused call, and again after the serve loop and the SSD check.
+   over B 1 x T 2048 with multimodal bits on attn_impl="bam_kernel"
+   (counts zeroed just before and read just after: K1 exactly 9
+   launches, one per shared-block call at head_dim 80, and no other
+   kernel) and on the plain path, ms and peak, both last-position
+   logits against an f32 forward of the same weights
+   (``DENSE_BF16_FACTOR``); the serve loop of phase 4b (plain, no
+   kernel); one Mamba2 block at full width in f32, the chunked SSD over
+   512 tokens against the block stepped token by token; one f32 AdamW
+   step at depth 12 (two shared-block calls) on the kernel path (K1, K2
+   and K3 at 80) and on the plain path from the same weights, loss,
+   grad_norm and parameters within ``DENSE_F32_REL``.
+4g. ``gemma2``: gemma2-9b (``configs/gemma2_9b.py``, head_dim 256) at
+   full width and depth in bf16 (9.24 B parameters): (a) 4 text requests
+   of 256-1024 tokens served through ``ServingEngine(attn="kernel")``
+   with 33 new tokens each (the prefill plain: the local/global
+   alternation; K4 once a layer a decode tick with the layer's own
+   window, and no other kernel), against ``attn="xla"`` by the serving
+   parity rule (f32 at 2 layers identical greedy tokens; bf16 full depth
+   agreement printed); (b) the all-local variant
+   (``long_context_variant``) prefilled over B 1 x T 2048 with
+   multimodal bits through K1 (42 launches) and on the plain path, both
+   against an f32 forward of the same weights; (c) one f32 AdamW step at
+   depth 2 of the all-local variant through K1-K3 (softcap 50) against
+   the plain step within ``DENSE_F32_REL``; (d) 2 bf16 AdamW steps at
+   depth 4, every parameter trainable (K1 once a layer, twice under
+   remat, K2 and K3 once a layer), finite losses.
 4e. ``xlstm``: xlstm-125m (``configs/xlstm_125m.py``, family ssm) at
    full width and depth in bf16 (no attention, no kernel):
    ``make_prefill`` over B 2 x T 2048 (32 mLSTM chunks of 64, 2048 sLSTM
@@ -306,7 +341,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PHASES = ("kernels", "compact", "serving", "dense", "moe", "hybrid",
-          "xlstm", "whisper", "train", "pp", "spmd", "resilience", "cp")
+          "gemma2", "xlstm", "whisper", "train", "pp", "spmd", "resilience",
+          "cp")
 KERNEL_KEYS = ("K1", "K1s", "K1c", "K2", "K2c", "K3", "K3c", "K4")
 HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -361,6 +397,7 @@ class Smoke:
         self.kernels = {}
         self.launches = {}
         self.cp_share = {}
+        self.head_dims = {}
 
     def check(self, ok: bool, what: str) -> None:
         print(("PASS " if ok else "FAIL ") + what, flush=True)
@@ -389,8 +426,10 @@ def ptxas_by_function(report: str):
     return out
 
 
-# the libraries whose bf16 instantiations run on the tensor cores, and how
-# many each has: K1 (3 modes' epilogues x compact x hd), K2, K3 (compact x hd)
+# the libraries whose bf16 instantiations at hd 64 and 128 run on the
+# tensor cores (the wgmma bodies, "_mma_kernel"), and how many each has:
+# K1 (3 modes' epilogues x compact x hd), K2, K3 (compact x hd); and as
+# many bf16 instantiations of the SIMT body at hd 80 and 256
 SASS_LIBS = {"bam_fwd": ("K1", 8), "bam_bwd_dq": ("K2", 4),
              "bam_bwd_dkv": ("K3", 4)}
 
@@ -410,8 +449,10 @@ def short_name(fn: str) -> str:
 def sass_check(smoke: Smoke, _build) -> None:
     """HGMMA instructions per kernel instantiation of the built bam_fwd,
     bam_bwd_dq and bam_bwd_dkv libraries (cuobjdump --dump-sass), printed
-    beside ptxas' registers and spills. Every bf16 instantiation of K1
-    (8), K2 (4) and K3 (4) must hold HGMMA and spill nothing."""
+    beside ptxas' registers and spills. Every wgmma-body instantiation of
+    K1 (8), K2 (4) and K3 (4) must hold HGMMA and spill nothing; the bf16
+    SIMT-body instantiations at hd 80 and 256 (as many) must be there and
+    hold no HGMMA (their spills are printed, not checked)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for lib, (key, want) in SASS_LIBS.items():
         try:
@@ -431,18 +472,24 @@ def sass_check(smoke: Smoke, _build) -> None:
             elif fn and "HGMMA" in line:
                 hgmma[fn] += 1
         ptxas = ptxas_by_function(_build.ptxas_report(lib))
-        bf16 = []
+        mma, simt = [], []
         for fn, count in sorted(hgmma.items()):
             regs, st, ld = ptxas.get(fn, (-1, -1, -1))
             print(f"  {lib} SASS {short_name(fn)}: {count} HGMMA, {regs} "
                   f"registers, spill stores {st} B, loads {ld} B",
                   flush=True)
-            if "__nv_bfloat16" in fn:
-                bf16.append(count > 0 and st == 0 and ld == 0)
-        smoke.check(len(bf16) == want and all(bf16),
-                    f"{key} SASS: {sum(bf16)} of {len(bf16)} bf16 "
-                    f"instantiations (want {want}) hold HGMMA and spill "
-                    f"nothing")
+            if "_mma_kernel" in fn:
+                mma.append(count > 0 and st == 0 and ld == 0)
+            elif "__nv_bfloat16" in fn:
+                simt.append(count == 0)
+        smoke.check(len(mma) == want and all(mma),
+                    f"{key} SASS: {sum(mma)} of {len(mma)} wgmma-body "
+                    f"instantiations (bf16, hd 64 and 128; want {want}) "
+                    f"hold HGMMA and spill nothing")
+        smoke.check(len(simt) == want and all(simt),
+                    f"{key} SASS: {len(simt)} bf16 SIMT-body "
+                    f"instantiations (hd 80 and 256; want {want}), none "
+                    f"with HGMMA")
 
 
 # ---------------------------------------------------------------------------
@@ -739,6 +786,7 @@ def bwd_cases(smoke: Smoke):
                          f"vlm layout"}
 
 
+GEMMA_ROWS = (256, 512, 768, 1024)   # gemma2-9b's requests' text tokens
 SMOKE_ROWS = [[("text", 0, 1500)],
               [("text", 0, 32), ("mod", 1, 576), ("text", 0, 64)],
               [("text", 0, 700)]]
@@ -824,7 +872,7 @@ def cuda_ms_cold(torch, fn, iters: int = 20) -> float:
 
 def k4_build_check(smoke: Smoke, _build) -> None:
     """ptxas' registers and spills for every K4 instantiation (f32 and
-    bf16 at hd 64 and 128): none may spill."""
+    bf16 at hd 64, 128 and 256): none may spill."""
     ptxas = {fn: v for fn, v in ptxas_by_function(
         _build.ptxas_report("paged_decode")).items()
         if "paged_decode_kernel" in fn}
@@ -834,9 +882,9 @@ def k4_build_check(smoke: Smoke, _build) -> None:
         print(f"  paged_decode_kernel<{dtype}, hd "
               f"{hd.group(1) if hd else '?'}>: {regs} registers, spill "
               f"stores {st} B, loads {ld} B", flush=True)
-    smoke.check(len(ptxas) == 4 and all(st == 0 and ld == 0 for _, st, ld
+    smoke.check(len(ptxas) == 6 and all(st == 0 and ld == 0 for _, st, ld
                                         in ptxas.values()),
-                f"K4 build: {len(ptxas)} of 4 instantiations, none spills")
+                f"K4 build: {len(ptxas)} of 6 instantiations, none spills")
 
 
 def k4_cases(smoke: Smoke):
@@ -844,9 +892,12 @@ def k4_cases(smoke: Smoke):
     smoke traffic's rows (with an empty row); a long context (rows of
     8192, 4096, 1024 and 17 tokens); a batch of 16 rows of 128-4096
     tokens; softcap 50 / window 256; head_dim 64; GQA 1:1 (32/32 heads)
-    and 8:1 (64/8). Empty rows must be exactly 0, a second run
-    torch.equal to the first, and the steps' ticket counters 0 again. bf16 cases print kernel, SDPA over the
-    gathered pages and bound ms with GB/s: kernel and SDPA replayed from
+    and 8:1 (64/8); head_dim 256 on a pool of gemma2-9b's shape (rows of
+    ``GEMMA_ROWS`` text tokens, 8 KV heads, 2 query heads each, softcap
+    50, window 4096 and 0; plain ms too). Empty rows must be exactly 0,
+    a second run torch.equal to the first, and the steps' ticket
+    counters 0 again. bf16 cases print kernel, SDPA over the gathered
+    pages and bound ms with GB/s: kernel and SDPA replayed from
     CUDA graphs (device time; also the kernel called back to back from
     the host, and with a cold L2), and the kernel with one split per row
     (no split over the SMs)."""
@@ -869,6 +920,10 @@ def k4_cases(smoke: Smoke):
              ("hd 64", SMOKE_ROWS, None, 32, 8, 64, 0.0, 0),
              ("GQA 1:1", SMOKE_ROWS, None, 32, 32, 128, 0.0, 0),
              ("GQA 8:1", SMOKE_ROWS, None, 64, 8, 128, 0.0, 0)]
+    gemma_rows = [[("text", 0, n)] for n in GEMMA_ROWS]
+    cases += [(f"hd 256 (gemma2-9b pool) window {w}", gemma_rows,
+               [text] * len(gemma_rows), 16, 8, 256, 50.0, w)
+              for w in (4096, 0)]
     for case, layouts, qbits, H, Hkv, hd, softcap, window in cases:
         for dt in ("bfloat16", "float32"):
             dtype = getattr(torch, dt)
@@ -956,6 +1011,16 @@ def k4_cases(smoke: Smoke):
                 smoke.kernels["K4"]["long_context"] = dict(
                     row, shape=f"q[{B},{H},{hd}] pages{tuple(kp.shape)} "
                     f"rows 8192/4096/1024/17 {dt}")
+            if hd == 256:
+                plain_ms = cuda_ms(
+                    torch, lambda: paged_decode_torch(*args, **kw), iters=3)
+                print(f"{name}: plain {plain_ms:.3f} ms", flush=True)
+                smoke.head_dims.setdefault("K4", {}).setdefault(
+                    "hd256", {})[f"window {window}"] = dict(
+                    row, max_abs_err=err, worst_err_over_tol=ratio,
+                    plain_ms=plain_ms, shape=f"q[{B},{H},{hd}] pages"
+                    f"{tuple(kp.shape)} {dt} rows "
+                    f"{'/'.join(map(str, GEMMA_ROWS))}")
             if case != "smoke rows":
                 continue
             plain_ms = cuda_ms(torch, lambda: paged_decode_torch(*args, **kw),
@@ -1277,6 +1342,273 @@ def cp_kernel_cases(smoke: Smoke):
 # ---------------------------------------------------------------------------
 
 COMPACT_T, COMPACT_LAYOUTS = 4096, ("ep", "ee", "mp")
+
+
+# ---------------------------------------------------------------------------
+# Phase 2c: head sizes 80 and 256 (the SIMT bodies of K1-K3; K4 at 256)
+# ---------------------------------------------------------------------------
+
+HD_T = 2048
+# (model, query heads, KV heads, head_dim, softcap, window): the head
+# layouts of gemma2-9b's all-local variant and of zamba2-2.7b's shared block
+HD_CASES = (("gemma2-9b", 16, 8, 256, 50.0, 4096),
+            ("zamba2-2.7b", 32, 32, 80, 0.0, 0))
+
+
+def head_dim_cases(smoke: Smoke):
+    """K1 (out, residual, stats), K1c (three modes), K2, K2c, K3 and K3c
+    at ``HD_CASES``' head layouts, bf16 and f32, T ``HD_T`` on
+    ``mm_bits``: each within ``compare`` (stats: ``compare_stats``) of its
+    plain version, the compacted grid (a map built at the kernels' tile
+    for the case's window) torch.equal to the dense one, K3 bit-identical
+    on a second run, the SIMT body serving every call (``kernel_body``).
+    Times of every kernel (kernel, plain, SDPA or its backward, bound) in
+    both dtypes. Then the refusals (``head_dim_refusals``); K4 at 256 is
+    one of ``k4_cases``."""
+    torch = smoke.torch
+    from repro_torch.core import bam
+    from repro_torch.kernels.bam_attention import (
+        BLOCK_K, BLOCK_Q, RETURN_MODES, bam_bwd_dkv, bam_bwd_dkv_torch,
+        bam_bwd_dq, bam_bwd_dq_torch, bam_flash_attention,
+        bam_flash_attention_torch, bwd_delta, kernel_body)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    bits_np, pos_np = mm_bits(HD_T)
+    bits, pos = (torch.from_numpy(a).cuda()[None] for a in (bits_np, pos_np))
+    smoke.head_dims = {}
+    for model, H, Hkv, hd, softcap, window in HD_CASES:
+        bm = bam.build_block_map(bits_np, bits_np, pos_np, pos_np, BLOCK_Q,
+                                 BLOCK_K, window)
+        mask = bam.allowed_mask(bits, bits, pos, pos, window)   # [1,T,T]
+        for dt in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt)
+            body = kernel_body(hd, dtype)
+            q, do = (torch.randn((1, HD_T, H, hd), generator=gen,
+                                 device="cuda").to(dtype) for _ in range(2))
+            k, v = (torch.randn((1, HD_T, Hkv, hd), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            fargs = (q, k, v, bits, bits, pos, pos)
+            kw = dict(softcap=softcap, window=window)
+            name = (f"hd {hd} ({model}: {H}/{Hkv} heads) T={HD_T} text/"
+                    f"modality-1/text {dt} softcap={softcap} "
+                    f"window={window}, {body} body")
+            errs = {}
+            for mode in RETURN_MODES:
+                dense = bam_flash_attention(*fargs, return_mode=mode, **kw)
+                comp = bam_flash_attention(*fargs, return_mode=mode,
+                                           block_map=bm, **kw)
+                torch.cuda.synchronize()
+                for key, got, bmap in (("K1", dense, None),
+                                       ("K1c", comp, bm)):
+                    plain = bam_flash_attention_torch(
+                        *fargs, return_mode=mode, block_map=bmap, **kw)
+                    if mode == "stats":
+                        err, ratio = compare_stats(got, plain, dt)
+                        err_lse = 0.0
+                    else:
+                        err, ratio = compare(as_tuple(got)[0],
+                                             as_tuple(plain)[0], dt)
+                        err_lse = (float((got[1] - plain[1]).abs().max())
+                                   if mode == "residual" else 0.0)
+                    equal = all(torch.equal(a, b) for a, b in
+                                zip(as_tuple(got), as_tuple(dense)))
+                    label = "K1s" if key == "K1" and mode == "stats" else key
+                    errs[(label, mode)] = (err, ratio)
+                    smoke.check(ratio <= 1.0 and err_lse <= 1e-3 and equal
+                                and body == "simt",
+                                f"{key} {mode} {name}: max_abs_err {err:.3e} "
+                                f"(tol {TOL_TEXT[dt]}; worst |d|/tol "
+                                f"{ratio:.3f}), lse {err_lse:.3e} (tol "
+                                f"1e-3); torch.equal to the dense K1: "
+                                f"{equal}")
+                    del plain
+                del dense, comp
+            out, lse = bam_flash_attention(*fargs, return_mode="residual",
+                                           **kw)
+            delta = bwd_delta(out, do)
+            bargs = (q, k, v, do, lse, delta, bits, bits, pos, pos)
+            dq = bam_bwd_dq(*bargs, **kw)
+            dk, dv = bam_bwd_dkv(*bargs, **kw)
+            dk2, dv2 = bam_bwd_dkv(*bargs, **kw)
+            dqc = bam_bwd_dq(*bargs, block_map=bm, **kw)
+            dkc, dvc = bam_bwd_dkv(*bargs, block_map=bm, **kw)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(dk, dk2) and torch.equal(dv, dv2))
+            for key, got, bmap, eq in (
+                    ("K2", (dq,), None, True),
+                    ("K2c", (dqc,), bm, bool(torch.equal(dqc, dq))),
+                    ("K3", (dk, dv), None, same),
+                    ("K3c", (dkc, dvc), bm, bool(torch.equal(dkc, dk)
+                                                 and torch.equal(dvc, dv)))):
+                fn = bam_bwd_dq_torch if key[:2] == "K2" else \
+                    bam_bwd_dkv_torch
+                plain = as_tuple(fn(*bargs, block_map=bmap, **kw))
+                pairs = [compare(a, b, dt) for a, b in zip(got, plain)]
+                err = max(e for e, _ in pairs)
+                ratio = max(r for _, r in pairs)
+                errs[(key, None)] = (err, ratio)
+                what = ("second run bit-identical" if key == "K3" else
+                        "torch.equal to the dense kernel")
+                smoke.check(ratio <= 1.0 and eq,
+                            f"{key} {name}: max_abs_err {err:.3e} (tol "
+                            f"{TOL_TEXT[dt]}; worst |d|/tol {ratio:.3f}); "
+                            f"{what}: {eq}")
+                del plain
+            del dq, dk, dv, dk2, dv2, dqc, dkc, dvc
+            head_dim_times(smoke, bm, mask, fargs, bargs, errs, kw,
+                           f"q[1,{HD_T},{H},{hd}] kv[1,{HD_T},{Hkv},{hd}] "
+                           f"{dt} text/modality-1/text softcap {softcap} "
+                           f"window {window} ({model})", body)
+            del q, k, v, do, out, lse, delta, fargs, bargs
+            gc.collect()
+            torch.cuda.empty_cache()
+    head_dim_refusals(smoke)
+
+
+def head_dim_times(smoke: Smoke, bm, mask, fargs, bargs, errs, kw,
+                   shape: str, body: str) -> None:
+    """Kernel, plain, SDPA (boolean mask; its backward for K2 and K3) and
+    bound ms of K1 (residual), K1 stats, K1c (residual), K2, K2c, K3 and
+    K3c at one head-size case; the rows go under
+    ``smoke.head_dims[key]["hd<N>"][dtype]``. Bound: K1 2, K2 3, K3 4
+    products of 2·hd·H FLOPs per allowed pair (inside the map's tiles
+    for the compacted grid) against the dtype's peak, and the inputs and
+    outputs once against HBM."""
+    torch = smoke.torch
+    import torch.nn.functional as F
+    from repro_torch.core import bam
+    from repro_torch.kernels.bam_attention import (
+        bam_bwd_dkv, bam_bwd_dkv_torch, bam_bwd_dq, bam_bwd_dq_torch,
+        bam_flash_attention, bam_flash_attention_torch)
+    q, k, v = fargs[:3]
+    B, T, H, hd = q.shape
+    Hkv = k.shape[2]
+    do, lse = bargs[3], bargs[4]
+    dt = str(q.dtype).split(".")[-1]
+    tiles = bam.tile_mask(bm, T, T, q.device)
+    pairs = {False: float(mask.sum()), True: float((mask & tiles).sum())}
+    csr = bam.block_csr(bm, q.device)
+    map_bytes = {"q": (csr.q_ptr.numel() + csr.q_cols.numel()) * 4,
+                 "k": (csr.k_ptr.numel() + csr.k_rows.numel()) * 4}
+    def nb(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    small = nb(*fargs[3:])
+    io, row = nb(q, k, v), nb(lse)
+    res = dict(return_mode="residual", **kw)
+    st = dict(return_mode="stats", **kw)
+    # key: (kernel call, plain call, compacted, products, bytes)
+    calls = {
+        "K1": (lambda: bam_flash_attention(*fargs, **res),
+               lambda: bam_flash_attention_torch(*fargs, **res), False, 2,
+               io + small + nb(q) + row),
+        "K1s": (lambda: bam_flash_attention(*fargs, **st),
+                lambda: bam_flash_attention_torch(*fargs, **st), False, 2,
+                io + small + 4 * q.numel() + 2 * row),
+        "K1c": (lambda: bam_flash_attention(*fargs, block_map=bm, **res),
+                lambda: bam_flash_attention_torch(*fargs, block_map=bm,
+                                                  **res), True, 2,
+                io + small + nb(q) + row + map_bytes["q"]),
+        "K2": (lambda: bam_bwd_dq(*bargs, **kw),
+               lambda: bam_bwd_dq_torch(*bargs, **kw), False, 3,
+               io + nb(do) + small + 2 * row + nb(q)),
+        "K2c": (lambda: bam_bwd_dq(*bargs, block_map=bm, **kw),
+                lambda: bam_bwd_dq_torch(*bargs, block_map=bm, **kw), True, 3,
+                io + nb(do) + small + 2 * row + nb(q) + map_bytes["q"]),
+        "K3": (lambda: bam_bwd_dkv(*bargs, **kw),
+               lambda: bam_bwd_dkv_torch(*bargs, **kw), False, 4,
+               io + nb(do) + small + 2 * row + 2 * nb(k)),
+        "K3c": (lambda: bam_bwd_dkv(*bargs, block_map=bm, **kw),
+                lambda: bam_bwd_dkv_torch(*bargs, block_map=bm, **kw), True,
+                4, io + nb(do) + small + 2 * row + 2 * nb(k)
+                + map_bytes["k"])}
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd_lib = {c: cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=m[:, None], enable_gqa=True))
+        for c, m in ((False, mask), (True, mask & tiles))}
+    n_rep = H // Hkv
+    bwd_lib = {}
+    for c, m in ((False, mask), (True, mask & tiles)):
+        qt_l = qt.detach().requires_grad_()
+        kt_l, vt_l = (x.repeat_interleave(n_rep, dim=1).detach()
+                      .requires_grad_() for x in (kt, vt))
+        out_l = F.scaled_dot_product_attention(qt_l, kt_l, vt_l,
+                                               attn_mask=m[:, None])
+        g_l = do.transpose(1, 2)
+        bwd_lib[c] = (cuda_ms(torch, lambda: torch.autograd.grad(
+            out_l, (qt_l,), g_l, retain_graph=True)),
+            cuda_ms(torch, lambda: torch.autograd.grad(
+                out_l, (kt_l, vt_l), g_l, retain_graph=True)))
+        del out_l, qt_l, kt_l, vt_l
+    for key, (fn, plain_fn, comp, nprod, nbytes) in calls.items():
+        ms = cuda_ms(torch, fn, iters=5, warmup=1)
+        plain = cuda_ms(torch, plain_fn, iters=2, warmup=1)
+        lib = (fwd_lib[comp] if key.startswith("K1") else
+               bwd_lib[comp][0 if key.startswith("K2") else 1])
+        flops = nprod * 2.0 * hd * H * pairs[comp]
+        b_ms, b_by = bound(flops, nbytes, dt)
+        err = max(e for (kk, _), (e, _r) in errs.items() if kk == key)
+        ratio = max(r for (kk, _), (_e, r) in errs.items() if kk == key)
+        sdpa = "SDPA" if key.startswith("K1") else "SDPA backward"
+        print(f"{key} {shape}: {body} body, kernel {ms:.3f} ms, plain "
+              f"{plain:.3f} ms, {sdpa} with bool mask {lib:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s "
+              f"[{smoke.smi}]", flush=True)
+        smoke.head_dims.setdefault(key, {}).setdefault(f"hd{hd}", {})[dt] = {
+            "shape": shape, "body": body, "max_abs_err": err,
+            "worst_err_over_tol": ratio, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def head_dim_refusals(smoke: Smoke):
+    """On CUDA tensors: K1, K2 and K3 refuse head_dim 96 and K4 96 and
+    80 with the wrappers' ``ValueError``, K4 refuses more than 16 query
+    heads per KV head and 64-slot pages at 256; none launches."""
+    torch = smoke.torch
+    from repro_torch.core import bam
+    from repro_torch.kernels.bam_attention import (
+        bam_bwd_dkv, bam_bwd_dq, bam_flash_attention)
+    from repro_torch.kernels.paged_decode import (decode_steps,
+                                                  paged_decode_attention)
+
+    def raises(fn) -> str:
+        try:
+            fn()
+        except ValueError as e:
+            return str(e)
+        return ""
+
+    zero_counts()
+    T, H = 64, 4
+    bits = torch.full((1, T), bam.text_token(), dtype=torch.int32,
+                      device="cuda")
+    pos = torch.arange(T, dtype=torch.int32, device="cuda")[None]
+    q = torch.randn((1, T, H, 96), device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros((1, H, T), device="cuda")
+    bargs = (q, q, q, q, lse, lse, bits, bits, pos, pos)
+    got = {"K1": raises(lambda: bam_flash_attention(q, q, q, bits, bits, pos,
+                                                    pos)),
+           "K2": raises(lambda: bam_bwd_dq(*bargs)),
+           "K3": raises(lambda: bam_bwd_dkv(*bargs))}
+    for hd, rep, ps, dt in ((96, 2, 16, torch.bfloat16),
+                            (80, 2, 16, torch.bfloat16),
+                            (256, 32, 16, torch.float32),
+                            (256, 2, 64, torch.bfloat16)):
+        Hkv, P = 2, 4
+        kp = torch.zeros((P, ps, Hkv, hd), device="cuda", dtype=dt)
+        meta = torch.zeros((P, ps), dtype=torch.int32, device="cuda")
+        qd = torch.zeros((1, Hkv * rep, hd), device="cuda", dtype=dt)
+        one = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+        steps = decode_steps(
+            (np.zeros(1), np.ones(1), np.zeros(1), np.zeros(1), np.ones(1)),
+            1, "cuda", kv_heads=Hkv, page_size=ps)
+        got[f"K4 hd {hd}, {rep} heads a KV head, {ps}-slot pages, {dt}"] = \
+            raises(lambda: paged_decode_attention(qd, kp, kp, one, one, meta,
+                                                  meta, steps))
+    counts = kernel_counts()
+    smoke.check(all(got.values()) and not any(counts.values()),
+                "refusals on CUDA tensors: " + "; ".join(
+                    f"{k}: {v or 'NOT REFUSED'}" for k, v in got.items())
+                + f"; launches {counts}")
 
 
 def kernel_counts():
@@ -1966,25 +2298,9 @@ def dense_phase(smoke: Smoke):
                 f"prefill vs unchunked: max |d| {err:.3e}, worst |d|/tol "
                 f"{ratio:.3f} ({TOL_TEXT['bfloat16']})")
 
-    # the f32 forward of the same (bf16-valued) weights as the yardstick
-    m32 = api.init(cfg.replace(dtype="float32"), device="meta").to_empty(
-        device="cuda")
-    m32.load_state_dict(model.state_dict())
-    b32 = dict(batch, inputs_embeds=batch["inputs_embeds"].float())
-    l32 = steps.make_prefill(cfg.replace(dtype="float32", attn_impl="xla"))(
-        m32, b32)
-    del m32
-    gc.collect()
-    torch.cuda.empty_cache()
-    ek, ex = (float((v.float() - l32).abs().max()) for v in (lk, lx))
-    agree = int((lk[:, -1].argmax(-1) == lx[:, -1].argmax(-1)).sum())
-    smoke.check(ek <= DENSE_BF16_FACTOR * ex,
-                f"bf16 full depth, last-position logits against the f32 "
-                f"forward of the same weights: kernel max |d| {ek:.4f}, "
-                f"plain {ex:.4f} (kernel <= {DENSE_BF16_FACTOR} x plain); "
-                f"kernel vs plain {float((lk - lx).abs().max()):.4f}, "
-                f"f32 logits max |l| {float(l32.abs().max()):.3f}; argmax "
-                f"agreement {agree}/{DENSE_B}")
+    ek, ex = against_f32(
+        smoke, model, cfg,
+        dict(batch, inputs_embeds=batch["inputs_embeds"].float()), lk, lx)
     smoke.dense = {"prefill": {n: {"ms": ms, "peak_gib": pk}
                                for n, (ms, pk) in times.items()},
                    "bf16_err_kernel": ek, "bf16_err_plain": ex}
@@ -1994,6 +2310,35 @@ def dense_phase(smoke: Smoke):
     gc.collect()
     torch.cuda.empty_cache()
     dense_f32_parity(smoke, cfg)
+
+
+def against_f32(smoke: Smoke, model, cfg, batch, lk, lx):
+    """The dense phase's rule: the kernel prefill's last-position logits
+    ``lk`` no further from an f32 forward of the same (bf16-valued)
+    weights than ``DENSE_BF16_FACTOR`` times the plain prefill's ``lx``.
+    Returns (kernel's max |d|, plain's)."""
+    torch = smoke.torch
+    from repro_torch.models import api
+    from repro_torch.training import steps
+
+    m32 = api.init(cfg.replace(dtype="float32"), device="meta").to_empty(
+        device="cuda")
+    m32.load_state_dict(model.state_dict())
+    l32 = steps.make_prefill(cfg.replace(dtype="float32", attn_impl="xla"))(
+        m32, batch)
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+    ek, ex = (float((v.float() - l32).abs().max()) for v in (lk, lx))
+    agree = int((lk[:, -1].argmax(-1) == lx[:, -1].argmax(-1)).sum())
+    smoke.check(ek <= DENSE_BF16_FACTOR * ex,
+                f"{cfg.name} bf16 full depth, last-position logits against "
+                f"the f32 forward of the same weights: kernel max |d| "
+                f"{ek:.4f}, plain {ex:.4f} (kernel <= {DENSE_BF16_FACTOR} x "
+                f"plain); kernel vs plain {float((lk - lx).abs().max()):.4f},"
+                f" f32 logits max |l| {float(l32.abs().max()):.3f}; argmax "
+                f"agreement {agree}/{lk.shape[0]}")
+    return ek, ex
 
 
 def tree_bytes(tree) -> int:
@@ -2122,14 +2467,19 @@ def full_config(name: str):
     return get_config(name)
 
 
-def lm_batch(torch, cfg, gen, B: int = 1, T: int = MOE_T):
-    """B rows of T tokens on the card: text T/4, a modality-1 stream of
-    T/2, text T/4 (``bam.build_sample_bits``), random tokens and
-    labels."""
+def mm_bits(T: int):
+    """(bits, positions) of T tokens, numpy int32: text T/4, a modality-1
+    stream of T/2, text T/4 (``bam.build_sample_bits``)."""
     from repro_torch.core import bam
     n = T // 4
-    bits, pos = bam.build_sample_bits(
+    return bam.build_sample_bits(
         [("text", 0, n), ("mod", 1, T - 2 * n), ("text", 0, n)], T)
+
+
+def lm_batch(torch, cfg, gen, B: int = 1, T: int = MOE_T):
+    """B rows of T tokens on the card with ``mm_bits``' layout, random
+    tokens and labels."""
+    bits, pos = mm_bits(T)
 
     def rows(a):
         return torch.as_tensor(a, dtype=torch.int32,
@@ -2529,24 +2879,29 @@ def qwen_moe_prefill(smoke: Smoke):
 # ---------------------------------------------------------------------------
 
 HYB_SSD_T = 512               # 4 chunks of 128
+HYB_TRAIN_LAYERS = 12         # two shared-block calls
 
 
 def hybrid_phase(smoke: Smoke):
-    """zamba2-2.7b at full width and depth, bf16, plain attention (its
-    head_dim 80 is no kernel head size): the prefill over B 1 x T 2048
-    with multimodal bits, the kernel path's refusal, the strip-cache
-    serve loop, and the chunked SSD against the recurrence in f32. No
-    kernel launches in the whole phase."""
+    """zamba2-2.7b at full width and depth, bf16, its shared attention
+    block (head_dim 80) on attn_impl="bam_kernel": the prefill over B 1 x
+    T 2048 with multimodal bits (K1 once per shared-block call and no
+    other kernel), the plain prefill beside it, both last-position logits
+    against an f32 forward of the same weights; the strip-cache serve
+    loop and the chunked SSD against the recurrence in f32 (no kernel);
+    one f32 AdamW step at depth ``HYB_TRAIN_LAYERS`` through K1-K3 at 80
+    against the plain step."""
     torch = smoke.torch
     from repro_torch.models import api
     from repro_torch.training import steps
 
-    cfg = full_config("zamba2-2.7b")
+    cfg = full_config("zamba2-2.7b").replace(attn_impl="bam_kernel")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     t0 = time.perf_counter()
     model = api.init(cfg, device="cuda", generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
+    n_calls = cfg.num_layers // cfg.attn_layer_period
     print(f"{cfg.name}: {n_params / 1e9:.3f} B parameters ({cfg.num_layers}"
           f" Mamba2 layers, a shared attention block every "
           f"{cfg.attn_layer_period}; d {cfg.d_model}, {cfg.num_heads} heads "
@@ -2557,39 +2912,39 @@ def hybrid_phase(smoke: Smoke):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    logits = prefill(model, batch)
+    lk = prefill(model, batch)
     torch.cuda.synchronize()
+    counts = kernel_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    smoke.check(bool(torch.isfinite(logits).all())
-                and logits.shape == (1, 1, cfg.vocab_size),
+    smoke.launches["hybrid"] = dict(counts)
+    others = {k: n for k, n in counts.items() if k != "K1" and n}
+    smoke.check(counts["K1"] == n_calls and not others,
+                f"{cfg.name}: K1 launched {counts['K1']} times in one bf16 "
+                f"prefill = {n_calls} shared-block calls (head_dim "
+                f"{cfg.head_dim}, SIMT body); other kernels {others or 0}")
+    smoke.check(bool(torch.isfinite(lk).all())
+                and lk.shape == (1, 1, cfg.vocab_size),
                 f"{cfg.name} bf16 prefill logits finite, shape "
-                f"{tuple(logits.shape)}")
+                f"{tuple(lk.shape)}")
     ms = cuda_ms(torch, lambda: prefill(model, batch), iters=3, warmup=1)
+    plain = steps.make_prefill(cfg.replace(attn_impl="xla"))
+    lx = plain(model, batch)
+    plain_ms = cuda_ms(torch, lambda: plain(model, batch), iters=3, warmup=1)
     print(f"{cfg.name} prefill through make_prefill, B 1 x T {MOE_T} "
-          f"(multimodal bits), plain attention: {ms:.1f} ms, peak "
-          f"{peak:.2f} GiB [{smoke.smi}]", flush=True)
+          f"(multimodal bits): kernel {ms:.1f} ms, plain {plain_ms:.1f} ms, "
+          f"peak {peak:.2f} GiB [{smoke.smi}]", flush=True)
     busy, wall = profile_call(
         torch, lambda: float(prefill(model, batch)[0, 0, 0]),
         f"{cfg.name} prefill profile")
+    ek, ex = against_f32(smoke, model, cfg, batch, lk, lx)
     smoke.hybrid = {"params": n_params,
-                    "prefill": {"ms": ms, "peak_gib": peak,
+                    "prefill": {"ms": ms, "plain_ms": plain_ms,
+                                "peak_gib": peak, "launches": dict(counts),
                                 "profile_busy_ms": busy,
-                                "profile_wall_ms": wall}}
-    refused = None
-    try:
-        steps.make_prefill(cfg.replace(attn_impl="bam_kernel"))(model, batch)
-    except ValueError as e:
-        refused = str(e)
-    smoke.check(refused is not None and f"head_dim {cfg.head_dim}" in refused,
-                f"{cfg.name} on the bam_kernel path raises the wrapper's "
-                f"ValueError: {refused}")
-    counts = kernel_counts()
-    smoke.launches["hybrid"] = dict(counts)
-    smoke.check(not any(counts.values()),
-                f"{cfg.name}: no kernel launched in the prefill, its timed "
-                f"and profiled reruns and the refused kernel path ({counts})")
-    dense_serve(smoke, model, cfg, into=smoke.hybrid)
-    del model, logits
+                                "profile_wall_ms": wall},
+                    "bf16_err_kernel": ek, "bf16_err_plain": ex}
+    dense_serve(smoke, model, cfg.replace(attn_impl="xla"), into=smoke.hybrid)
+    del model, lk, lx
     gc.collect()
     torch.cuda.empty_cache()
     hybrid_ssd_check(smoke, cfg)
@@ -2597,6 +2952,70 @@ def hybrid_phase(smoke: Smoke):
     smoke.check(not any(counts.values()),
                 f"{cfg.name}: no kernel launched in the serve loop and the "
                 f"SSD check ({counts})")
+    c12 = cfg.replace(num_layers=HYB_TRAIN_LAYERS, dtype="float32")
+    n12 = c12.num_layers // c12.attn_layer_period
+    smoke.hybrid["train_parity_f32"] = train_parity(
+        smoke, c12, lm_batch, SEED + 15,
+        {"K1": (2 if c12.remat else 1) * n12, "K2": n12, "K3": n12})
+
+
+def train_parity(smoke: Smoke, c32, make_batch, seed: int, want) -> dict:
+    """f32, full width: one AdamW ``make_train_step`` on the kernel path
+    (launches counted: ``want``) and one on the plain path from the same
+    weights and batch (``make_batch(torch, cfg, gen)``). Loss, grad_norm
+    and the parameters after the step within ``DENSE_F32_REL`` (relative;
+    parameters of max |parameter|); AdamW eps 1e-3, as in
+    ``moe_train_parity``."""
+    torch = smoke.torch
+    from repro_torch.models import api
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.training import steps
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = api.init(c32, device="cuda", generator=gen)
+    model.requires_grad_(True)
+    batch = make_batch(torch, c32, gen)
+    ocfg = opt.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10,
+                           eps=1e-3)
+    res, params = {}, {}
+    for impl in ("bam_kernel", "xla"):
+        m = copy.deepcopy(model) if impl == "bam_kernel" else model
+        state = opt.init(ocfg, dict(m.named_parameters()))
+        step = steps.make_train_step(c32.replace(attn_impl=impl), ocfg)
+        zero_counts()
+        t0 = time.perf_counter()
+        m, state, met = step(m, state, batch)
+        torch.cuda.synchronize()
+        took = (time.perf_counter() - t0) * 1e3
+        counts = kernel_counts()
+        res[impl] = (float(met["loss"]), float(met["grad_norm"]),
+                     {k: counts[k] for k in want},
+                     {k: n for k, n in counts.items() if n and k not in want},
+                     took)
+        params[impl] = m
+        del state
+    (lk, gk, got, oth, mk), (lx, gx, plain, _, mx) = (res["bam_kernel"],
+                                                     res["xla"])
+    pk = dict(params["bam_kernel"].named_parameters())
+    worst, top = 0.0, 0.0
+    with torch.no_grad():
+        for n, p in params["xla"].named_parameters():
+            worst = max(worst, float((pk[n] - p).abs().max()))
+            top = max(top, float(p.abs().max()))
+    del params, pk, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rl, rg, rp = abs(lk - lx) / abs(lx), abs(gk - gx) / abs(gx), worst / top
+    smoke.check(got == want and not oth and not any(plain.values())
+                and max(rl, rg, rp) <= DENSE_F32_REL,
+                f"f32 {c32.name} depth {c32.num_layers}, full width, one "
+                f"AdamW step, kernel vs plain: loss {lk:.7f} vs {lx:.7f} "
+                f"(rel {rl:.2e}), grad_norm {gk:.7f} vs {gx:.7f} (rel "
+                f"{rg:.2e}), parameters max |d| / max |p| {rp:.2e} (tol "
+                f"{DENSE_F32_REL}); launches {got} (want {want}), others "
+                f"{oth or 0}, plain path {plain}; {mk:.0f} vs {mx:.0f} ms")
+    return {"loss_rel": rl, "grad_norm_rel": rg, "params_rel": rp,
+            "launches": got, "ms": mk, "plain_ms": mx}
 
 
 def hybrid_ssd_check(smoke: Smoke, cfg):
@@ -2635,6 +3054,163 @@ def hybrid_ssd_check(smoke: Smoke, cfg):
                 f"chunks: chunked SSD vs the recurrence, output max |d| / "
                 f"max {ry:.2e}, final state {rh:.2e} (tol {DENSE_F32_REL})")
     smoke.hybrid["ssd_check"] = {"output_rel": ry, "state_rel": rh}
+
+
+# ---------------------------------------------------------------------------
+# Phase 4g: gemma2-9b (head_dim 256)
+# ---------------------------------------------------------------------------
+
+GEMMA_TICKS = 32                     # decode ticks a request
+GEMMA_TRAIN_LAYERS = 4
+
+
+def gemma2_requests(vocab: int):
+    """4 text prompts of ``GEMMA_ROWS`` tokens, each asking for one token
+    from its prefill and ``GEMMA_TICKS`` from decode ticks."""
+    rng = np.random.default_rng(SEED + 14)
+    return [dict(tokens=rng.integers(1, vocab, size=n),
+                 max_new_tokens=GEMMA_TICKS + 1) for n in GEMMA_ROWS]
+
+
+def gemma2_phase(smoke: Smoke):
+    """gemma2-9b at full width and depth, bf16 (head_dim 256): paged
+    serving through K4 at each layer's own window; the all-local
+    variant's prefill through K1; f32 train parity at depth 2 and 2 bf16
+    steps at depth ``GEMMA_TRAIN_LAYERS`` through K1-K3 (the all-local
+    variant: the alternation stays on the plain path off CP)."""
+    torch = smoke.torch
+    from repro_torch.configs import gemma2_9b
+    from repro_torch.models import api
+    from repro_torch.training import steps
+
+    t_phase = time.perf_counter()
+    cfg = full_config("gemma2-9b").replace(attn_impl="bam_kernel")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    t0 = time.perf_counter()
+    model = api.init(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"{cfg.name}: {n_params / 1e9:.3f} B parameters ({cfg.num_layers}"
+          f" layers, windows {cfg.sliding_window}/0 alternating; d "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads of "
+          f"{cfg.head_dim}, softcap {cfg.attn_softcap}), bf16, init "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    smoke.gemma2 = {"params": n_params}
+
+    # (a) paged serving: K4 once a layer a tick, the prefill plain (the
+    # alternation), against the dense-gather path
+    reqs = gemma2_requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    got, eng = serve(model, cfg, "kernel", reqs)
+    wall = time.perf_counter() - t0
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    smoke.launches["gemma2_serving"] = dict(counts)
+    others = {k: n for k, n in counts.items() if k != "K4" and n}
+    ticks = eng.decode_ticks
+    smoke.check(counts["K4"] == cfg.num_layers * ticks and ticks > 0
+                and not others,
+                f"{cfg.name} paged serving: K4 launched {counts['K4']} times "
+                f"= {cfg.num_layers} layers x {ticks} decode ticks (head_dim "
+                f"{cfg.head_dim}); other kernels {others or 0}")
+    tick_ms = eng.decode_seconds * 1e3 / max(ticks, 1)
+    eng_prefill_ms = eng.prefill_seconds * 1e3
+    t0 = time.perf_counter()
+    ref, eng_x = serve(model, cfg.replace(attn_impl="xla"), "xla", reqs)
+    wall_x = time.perf_counter() - t0
+    tick_x = eng_x.decode_seconds * 1e3 / max(eng_x.decode_ticks, 1)
+    same = sum(a == b for a, b in zip(got, ref))
+    first = [next((i for i, (a, b) in enumerate(zip(g, r)) if a != b),
+                  len(g)) for g, r in zip(got, ref)]
+    print(f"{cfg.name} paged serving, {len(reqs)} text requests of "
+          f"{'/'.join(map(str, GEMMA_ROWS))} tokens, {GEMMA_TICKS + 1} new "
+          f"each: kernel prefill {eng_prefill_ms:.1f} ms total, "
+          f"decode {tick_ms:.2f} ms/tick over {ticks} ticks, wall "
+          f"{wall:.2f} s, peak {peak:.2f} GiB; xla decode {tick_x:.2f} "
+          f"ms/tick, wall {wall_x:.2f} s; bf16 greedy tokens equal for "
+          f"{same}/{len(reqs)} requests (first difference at "
+          f"{first}) [{smoke.smi}]", flush=True)
+    smoke.check(all(len(t) == GEMMA_TICKS + 1
+                    and all(0 <= x < cfg.vocab_size for x in t)
+                    for t in got + ref),
+                f"{cfg.name}: every request generated {GEMMA_TICKS + 1} "
+                f"in-vocab tokens on both paths")
+    del eng, eng_x
+    gc.collect()
+    torch.cuda.empty_cache()
+    # parity_phase's rule: at f32 with 2 layers (one local, one global)
+    # the two paths emit identical greedy tokens
+    c32 = cfg.replace(num_layers=2, dtype="float32")
+    m32 = api.init(c32, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(SEED + 18))
+    got32, _ = serve(m32, c32, "kernel", reqs)
+    ref32, _ = serve(m32, c32.replace(attn_impl="xla"), "xla", reqs)
+    same32 = sum(a == b for a, b in zip(got32, ref32))
+    smoke.check(same32 == len(reqs),
+                f"f32 {cfg.name} 2 layers, full width: kernel engine == "
+                f"plain engine greedy tokens for {same32}/{len(reqs)} "
+                f"requests")
+    smoke.gemma2["serving"] = {"decode_ms_per_tick": tick_ms,
+                               "xla_decode_ms_per_tick": tick_x,
+                               "prefill_ms": eng_prefill_ms,
+                               "ticks": ticks, "peak_gib": peak,
+                               "launches": dict(counts),
+                               "same_tokens_bf16": same,
+                               "same_tokens_f32": same32}
+    del m32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the all-local variant's prefill through K1, against plain and f32
+    lc = gemma2_9b.long_context_variant().replace(attn_impl="bam_kernel")
+    batch = lm_batch(torch, lc, gen)
+    prefill = steps.make_prefill(lc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    lk = prefill(model, batch)
+    torch.cuda.synchronize()
+    counts = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    smoke.launches["gemma2"] = dict(counts)
+    others = {k: n for k, n in counts.items() if k != "K1" and n}
+    smoke.check(counts["K1"] == lc.num_layers and not others
+                and bool(torch.isfinite(lk).all()),
+                f"{lc.name}: K1 launched {counts['K1']} times in one bf16 "
+                f"prefill = {lc.num_layers} layers (head_dim {lc.head_dim}, "
+                f"window {lc.sliding_window}, SIMT body); other kernels "
+                f"{others or 0}; logits finite")
+    ms = cuda_ms(torch, lambda: prefill(model, batch), iters=3, warmup=1)
+    plain = steps.make_prefill(lc.replace(attn_impl="xla"))
+    lx = plain(model, batch)
+    plain_ms = cuda_ms(torch, lambda: plain(model, batch), iters=3, warmup=1)
+    print(f"{lc.name} prefill through make_prefill, B 1 x T {MOE_T} "
+          f"(multimodal bits): kernel {ms:.1f} ms, plain {plain_ms:.1f} ms, "
+          f"peak {peak:.2f} GiB [{smoke.smi}]", flush=True)
+    ek, ex = against_f32(smoke, model, lc, batch, lk, lx)
+    smoke.gemma2["prefill"] = {"ms": ms, "plain_ms": plain_ms,
+                               "peak_gib": peak, "launches": dict(counts),
+                               "bf16_err_kernel": ek, "bf16_err_plain": ex}
+    del model, lk, lx
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) f32 train parity at depth 2; (d) 2 bf16 steps at depth 4
+    c2 = lc.replace(num_layers=2, dtype="float32")
+    smoke.gemma2["train_parity_f32"] = train_parity(
+        smoke, c2, lm_batch, SEED + 16,
+        {"K1": (2 if c2.remat else 1) * 2, "K2": 2, "K3": 2})
+    c4 = lc.replace(num_layers=GEMMA_TRAIN_LAYERS)
+    smoke.gemma2["train"] = family_train(
+        smoke, c4, lm_batch(torch, c4, gen), SEED + 17,
+        f"{c4.name} depth {c4.num_layers}, B 1 x T {MOE_T}",
+        {"K1": (2 if c4.remat else 1) * c4.num_layers,
+         "K2": c4.num_layers, "K3": c4.num_layers})
+    print(f"{cfg.name} phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2682,9 +3258,13 @@ def serve_ticks(torch, model, cfg, cache, first, n: int):
     return (time.perf_counter() - t0) * 1e3 / n, torch.stack(out, 1)
 
 
-def family_train(smoke: Smoke, cfg, batch, seed: int, label: str) -> dict:
+def family_train(smoke: Smoke, cfg, batch, seed: int, label: str,
+                 want=None) -> dict:
     """2 AdamW steps of ``make_train_step`` at full width and depth, every
-    parameter trainable: ms per step, losses, peak memory; no kernel."""
+    parameter trainable: ms per step, losses, peak memory. Launch counts
+    are zeroed before the steps and read after them: each kernel of
+    ``want`` ({key: launches a step}) as often as it says, every other
+    count 0 (with no ``want``, no kernel at all)."""
     torch = smoke.torch
     from repro_torch.models import api
     from repro_torch.optim import optimizer as opt
@@ -2709,9 +3289,20 @@ def family_train(smoke: Smoke, cfg, batch, seed: int, label: str) -> dict:
                      "loss": float(met["loss"]),
                      "grad_norm": float(met["grad_norm"])})
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    counts = no_launches(smoke, f"{label} train, 2 steps")
-    print(f"{label} train, full width and depth ({len(named)} tensors, "
-          f"all trainable), AdamW: " + ", ".join(
+    if want is None:
+        counts = no_launches(smoke, f"{label} train, 2 steps")
+    else:
+        counts = kernel_counts()
+        got = {k: counts[k] for k in want}
+        others = {k: n for k, n in counts.items() if k not in want and n}
+        smoke.check(got == {k: 2 * n for k, n in want.items()}
+                    and not others,
+                    f"{label} train, 2 steps: launches {got} (want "
+                    f"{want} a step, remat {cfg.remat}); others "
+                    f"{others or 0}")
+    print(f"{label} train, {sum(p.numel() for p in named.values()) / 1e9:.3f}"
+          f" B parameters ({len(named)} tensors, all trainable), AdamW: "
+          + ", ".join(
               f"step {i} {r['ms']:.1f} ms loss {r['loss']:.4f} grad_norm "
               f"{r['grad_norm']:.4f}" for i, r in enumerate(rows))
           + f"; peak {peak:.2f} GiB [{smoke.smi}]", flush=True)
@@ -4538,6 +5129,9 @@ def main() -> int:
         bwd_more_cases(smoke)
         k4_cases(smoke)
         cp_kernel_cases(smoke)
+        head_dim_cases(smoke)
+        gc.collect()
+        torch.cuda.empty_cache()
     if "compact" in phases:
         compact_kernel_cases(smoke)
         compact_layouts(smoke)
@@ -4562,6 +5156,10 @@ def main() -> int:
         torch.cuda.empty_cache()
     if "hybrid" in phases:
         hybrid_phase(smoke)
+        gc.collect()
+        torch.cuda.empty_cache()
+    if "gemma2" in phases:
+        gemma2_phase(smoke)
         gc.collect()
         torch.cuda.empty_cache()
     if "xlstm" in phases:
@@ -4603,9 +5201,10 @@ def main() -> int:
               f"for a partial run")
         return 0
     # launches: each kernel's count on each path it is on (serving: K1,
-    # K4; dense and moe: K1; train, moe_train and pp: K1, K2, K3; cp: K1
-    # stats, K2, K3; compact: K1c, K2c, K3c); "launches" is the train
-    # path's for K1-K3, the CP path's
+    # K4; dense, moe, hybrid and gemma2: K1; gemma2_serving: K4; train,
+    # moe_train and pp: K1, K2, K3; cp: K1 stats, K2, K3;
+    # compact: K1c, K2c, K3c); "launches" is the train path's for K1-K3,
+    # the CP path's
     # for K1 stats, the compact path's for K1c-K3c
     paths = smoke.launches
     for key in KERNEL_KEYS:
@@ -4617,6 +5216,8 @@ def main() -> int:
              if p in by_path), 0)
     for key, share in smoke.cp_share.items():
         smoke.kernels[key]["cp_share"] = share
+    for key, rows in smoke.head_dims.items():   # hd80 / hd256 rows
+        smoke.kernels[key].update(rows)
     for key in ("K1c", "K2c", "K3c"):
         smoke.kernels[key]["layouts"] = {
             mode: {"active_steps": row["active_steps"],

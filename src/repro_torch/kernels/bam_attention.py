@@ -18,9 +18,15 @@ grid, the counterpart of the Pallas kernels' ``block_map`` path
 (``_bam_fwd_kernel_sparse``, ``_bam_bwd_dq_kernel_sparse``,
 ``_bam_bwd_dkv_kernel_sparse``). The kernels then walk only the active
 tiles of the map's CSR rows (``core.bam.block_csr``): q-major for K1 and
-K2, k-major for K3 (in bf16, whose block owns 64 keys, the union of each
-pair of k-major rows). Pairs outside the map's tiles count as masked, so the
-plain versions AND the mask with ``core.bam.tile_mask``.
+K2, k-major for K3 (on its wgmma body, whose block owns 64 keys, the union
+of each pair of k-major rows). Pairs outside the map's tiles count as
+masked, so the plain versions AND the mask with ``core.bam.tile_mask``.
+
+Head sizes (``kernel_body``): the kernels take ``HEAD_DIMS`` = 64, 80,
+128 and 256. bf16 at 64 and 128 runs the wgmma bodies (Hopper's tensor
+cores); f32, and bf16 at 80 and 256, run the SIMT bodies (f32 FMAs out
+of padded shared memory). Any other head size raises ``ValueError`` on
+a CUDA tensor.
 
 The [T, T] mask is never materialised by a kernel: each tile of it is
 evaluated from the int32 bitfield and position vectors. A CPU tensor
@@ -43,7 +49,8 @@ from repro_torch.kernels.ref import (NEG_INF, masked_attention,  # noqa: F401
                                      masked_stats)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128, 256)      # what K1, K2 and K3 take
+WGMMA_HEAD_DIMS = (64, 128)         # bf16 on the tensor cores
 RETURN_MODES = ("out", "residual", "stats")
 # the kernels' tile (csrc/*.cu: BQ x BK), which a block map must share
 BLOCK_Q, BLOCK_K = 64, 32
@@ -66,6 +73,17 @@ def check_block_map(block_map, Tq: int, Tk: int, window: int) -> None:
     if block_map.window != window:
         raise ValueError(f"block_map was built for window "
                          f"{block_map.window}, the call has {window}")
+
+
+def kernel_body(hd: int, dtype) -> str:
+    """The body of K1, K2 and K3 that a CUDA call at head size ``hd`` in
+    ``dtype`` runs: ``"wgmma"`` (bf16 at ``WGMMA_HEAD_DIMS``) or
+    ``"simt"``. Raises ``ValueError`` for a head size the kernels do not
+    take."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    wgmma = dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+    return "wgmma" if wgmma else "simt"
 
 
 def _tiles(block_map, q, k, major: str):
@@ -166,8 +184,7 @@ def bam_flash_attention(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
         raise ValueError("bam_flash_attention needs contiguous inputs")
     B, Tq, H, hd = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    kernel_body(hd, q.dtype)
     stats = return_mode == "stats"
     row = dict(dtype=torch.float32, device=q.device)
     out = torch.empty((B, H, Tq, hd), **row) if stats else torch.empty_like(q)
@@ -319,8 +336,7 @@ def _check_bwd(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos,
         raise ValueError("bits and positions must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the BAM backward kernels need contiguous inputs")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    kernel_body(hd, q.dtype)
     return False
 
 
@@ -371,10 +387,10 @@ def bam_bwd_dkv(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos, *,
     """K3: (dK, dV) [B,Tk,Hkv,hd] in k's dtype, folded over the query
     heads of each KV head inside the kernel (no atomics: the same bits
     every run). Any Tq, Tk. With ``block_map`` each block walks only its
-    active q blocks, each as two 32-row tiles: in f32 a 32-key block its
-    k-major row, in bf16 a 64-key block the union of its two k-major
-    rows (``k64_ptr``/``k64_rows``), masking a half's pairs in a q block
-    its own row does not list."""
+    active q blocks, each as two 32-row tiles: on the SIMT body a 32-key
+    block its k-major row, on the wgmma body a 64-key block the union of
+    its two k-major rows (``k64_ptr``/``k64_rows``), masking a half's
+    pairs in a q block its own row does not list."""
     args = (q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos)
     kw = dict(softcap=softcap, window=window, block_map=block_map)
     if _check_bwd(*args, block_map, window):
@@ -383,7 +399,8 @@ def bam_bwd_dkv(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos, *,
     rc = _bwd_entry("bam_bwd_dkv", 2)(
         *_bwd_args(*args), dk.data_ptr(), dv.data_ptr(),
         *_csr_args(block_map, q.device,
-                   "k64" if q.dtype == torch.bfloat16 else "k"),
+                   "k64" if kernel_body(q.shape[3], q.dtype) == "wgmma"
+                   else "k"),
         *_bwd_scalars(q, k, softcap, window))
     _build.check("bam_bwd_dkv", rc)
     _count(bam_bwd_dkv, block_map)

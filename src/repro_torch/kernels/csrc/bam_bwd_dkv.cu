@@ -22,10 +22,10 @@
 // skip, never position alone, because a modality's queries attend both
 // ways within their stream. Ragged Tq and Tk load as zeros with bits 0.
 //
-// bf16 (every model path): K2's design transposed, keys as wgmma's M.
-// One warpgroup of 128 threads owns 64 keys (two of the block map's
-// 32-key columns) of one KV head and loops over its query heads and,
-// for each, over 32-row q tiles:
+// bf16 at hd 64 and 128 (the wgmma body): K2's design transposed, keys
+// as wgmma's M. One warpgroup of 128 threads owns 64 keys (two of the
+// block map's 32-key columns) of one KV head and loops over its query
+// heads and, for each, over 32-row q tiles:
 //  - S^T = K·Q^T and dP^T = V·dO^T are wgmma m64n32k16 with K and V
 //    resident and the q tile's Q and dO in shared memory (bam_mma.cuh's
 //    128-byte swizzle), loaded by cp.async with the rows' bits,
@@ -67,8 +67,12 @@
 //    no pair of which is allowed adds exact zeros, so for a map that
 //    covers the mask K3c writes dense K3's bits.
 //
-// float32 (parity runs only) keeps the first design unchanged: f32 FMAs
-// out of padded shared memory. One block owns one (32-key tile, KV head,
+// The SIMT body (float32, and bf16 at hd 80 and 256, where no wgmma body
+// is built yet; bf16 converted to f32 on load, dK and dV rounded once on
+// store) keeps the first design unchanged: f32 FMAs out of padded shared
+// memory. At hd 256 a thread keeps 64 columns each of dK and dV in
+// registers and a block takes 140,544 bytes of shared memory. One block
+// owns one (32-key tile, KV head,
 // batch row); four threads share a key: in the score phase each computes
 // the (S, dP) pairs of 8 of the tile's 32 q rows; in the product phase
 // each owns every fourth dK and dV column. A q tile with no allowed pair
@@ -97,7 +101,7 @@ constexpr int NT = 128;     // threads per block (f32: four per key)
 constexpr int IR = BQ / 4;  // q rows per thread in the score phase
 constexpr int MAP_BQ = 64;  // q rows per block of the block map
 
-// float32: four threads per key, f32 FMAs.
+// SIMT body: four threads per key, f32 FMAs.
 // COMPACT = true: walk the q blocks of CSR row blockIdx.x of (tile_ptr
 // [nk+1], tile_idx) only, MAP_BQ / BQ tiles each; COMPACT = false: every
 // q tile (both null).
@@ -115,6 +119,7 @@ bam_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const int* __restrict__ tile_idx, int Tq, int Tk, int H,
                    int Hkv, float scale, float softcap, int window) {
   static_assert(MAP_BQ % BQ == 0, "a map q block is whole q tiles");
+  static_assert(HD % 4 == 0, "four threads split a key's columns");
   constexpr int SUB = MAP_BQ / BQ;
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 4;  // dK and dV columns per thread
@@ -256,10 +261,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            int H, int Hkv, float scale, float softcap, int window,
            cudaStream_t stream) {
   constexpr int LD = HD + 1;
-  const size_t smem =
+  constexpr size_t smem =
       sizeof(float) * (2 * BK * LD + 2 * BQ * LD + 2 * BQ * (BK + 1) +
                        2 * BQ) +
       sizeof(int) * 2 * BQ;
+  static_assert(smem <= MAX_BLOCK_SMEM,
+                "K3's SIMT body does not fit a block's shared memory");
   auto kern = bam_bwd_dkv_kernel<T, HD, COMPACT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -622,7 +629,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const int* tile_ptr, const int* tile_idx, int B, int Tq, int Tk,
              int H, int Hkv, float scale, float softcap, int window,
              cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (!wgmma_body<T, HD>())
     return launch<T, HD, COMPACT>(q, k, v, dout, lse, delta, qb, kb, qp, kp,
                                   dk, dv, tile_ptr, tile_idx, B, Tq, Tk, H,
                                   Hkv, scale, softcap, window, stream);
@@ -636,12 +643,14 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32, 1 = bfloat16. q/dout [B,Tq,H,hd], k/v/dk/dv
 // [B,Tk,Hkv,hd], all contiguous; lse/delta f32 [B,H,Tq]; bits/pos int32
-// [B,T]. dK/dV come out folded over the H / Hkv query heads of each KV
-// head. With tile_ptr set, the compacted grid: int32 CSR rows (q blocks
-// of 64 rows, ascending per row), for float32 the map's k-major list
-// (core/bam.py::block_csr k_ptr [ceil(Tk/32)+1], k_rows), for bfloat16
-// its 64-key list (k64_ptr [ceil(Tk/64)+1], k64_rows: 4 q block + half
-// flags); both null for the dense grid. bf16 q, k, v and dout must start
+// [B,T]; hd 64, 80, 128 or 256 (bf16 at 64 and 128 on the wgmma body, the
+// rest on the SIMT body; any other hd returns cudaErrorInvalidValue).
+// dK/dV come out folded over the H / Hkv query heads of each KV head.
+// With tile_ptr set, the compacted grid: int32 CSR rows (q blocks of 64
+// rows, ascending per row), for the SIMT body the map's k-major list
+// (core/bam.py::block_csr k_ptr [ceil(Tk/32)+1], k_rows), for the wgmma
+// body its 64-key list (k64_ptr [ceil(Tk/64)+1], k64_rows: 4 q block +
+// half flags); both null for the dense grid. bf16 q, k, v and dout must start
 // on 16 bytes (16-byte cp.async rows), else cudaErrorMisalignedAddress.
 // Returns cudaGetLastError() after the launch.
 extern "C" int bam_bwd_dkv(const void* q, const void* k, const void* v,
@@ -677,9 +686,13 @@ extern "C" int bam_bwd_dkv(const void* q, const void* k, const void* v,
                                          Tk, H, Hkv, scale, softcap, window,  \
                                          st)
   if (dtype == 0 && hd == 64) BAM_DKV_CASE(float, 64);
+  if (dtype == 0 && hd == 80) BAM_DKV_CASE(float, 80);
   if (dtype == 0 && hd == 128) BAM_DKV_CASE(float, 128);
+  if (dtype == 0 && hd == 256) BAM_DKV_CASE(float, 256);
   if (dtype == 1 && hd == 64) BAM_DKV_CASE(__nv_bfloat16, 64);
+  if (dtype == 1 && hd == 80) BAM_DKV_CASE(__nv_bfloat16, 80);
   if (dtype == 1 && hd == 128) BAM_DKV_CASE(__nv_bfloat16, 128);
+  if (dtype == 1 && hd == 256) BAM_DKV_CASE(__nv_bfloat16, 256);
 #undef BAM_DKV_CASE
   return (int)cudaErrorInvalidValue;
 }

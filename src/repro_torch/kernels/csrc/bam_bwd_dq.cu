@@ -11,11 +11,12 @@
 // path's T = 1600, so it is bound by operations, 989 TFLOP/s of bf16
 // tensor cores.
 //
-// bf16 (every model path): K1's design (bam_fwd.cu) with the backward's
-// arithmetic. One warpgroup of 128 threads owns a 64-row q tile of one
-// head, which is wgmma's M, and loops over 32-key tiles with the f32 dQ
-// tile in registers; the grid runs heads fastest and the last q tiles
-// first, so a long causal q tile shares its SM with a short one.
+// bf16 at hd 64 and 128 (the wgmma body): K1's design (bam_fwd.cu) with
+// the backward's arithmetic. One warpgroup of 128 threads owns a 64-row
+// q tile of one head, which is wgmma's M, and loops over 32-key tiles
+// with the f32 dQ tile in registers; the grid runs heads fastest and the
+// last q tiles first, so a long causal q tile shares its SM with a short
+// one.
 //  - S = Q·K^T and dP = dO·V^T are wgmma m64n32k16 with Q and dO
 //    resident and K and V in shared memory (bam_mma.cuh's 128-byte
 //    swizzle), hd / 16 steps each: bf16 products are exact and sum in
@@ -48,8 +49,12 @@
 //    which is allowed adds exact zeros, so for a map that covers the mask
 //    K2c writes dense K2's bits.
 //
-// float32 (parity runs only) keeps the first design unchanged: f32 FMAs
-// out of padded shared memory. One block owns one (64-row q tile, q
+// The SIMT body (float32, and bf16 at hd 80 and 256, where no wgmma body
+// is built yet; bf16 converted to f32 on load, dQ rounded once on store)
+// keeps the first design unchanged: f32 FMAs out of padded shared
+// memory. At hd 256 a thread keeps 128 dQ columns in registers and a
+// block takes 206,080 bytes of shared memory (one block an SM). One
+// block owns one (64-row q tile, q
 // head, batch row) and loops over all 32-key tiles of K/V, keeping its
 // dQ rows in registers; two threads share a q row, each computing 16 of
 // the tile's 32 (S, dP) pairs and owning every second dQ column; a tile
@@ -80,7 +85,7 @@ constexpr int BK = 32;     // keys per tile
 constexpr int NT = 128;    // threads per block (f32: two per q row)
 constexpr int JN = BK / 2; // pairs per thread per tile
 
-// float32: two threads per q row, f32 FMAs.
+// SIMT body: two threads per q row, f32 FMAs.
 // COMPACT = true: walk the k tiles of CSR row blockIdx.x of (tile_ptr
 // [nq+1], tile_idx) only; COMPACT = false: every k tile (both null).
 template <typename T, int HD, bool COMPACT>
@@ -94,6 +99,7 @@ bam_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   T* __restrict__ dq, const int* __restrict__ tile_ptr,
                   const int* __restrict__ tile_idx, int Tq, int Tk, int H,
                   int Hkv, float scale, float softcap, int window) {
+  static_assert(HD % 2 == 0, "two threads split a row's columns");
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 2;  // dQ columns per thread
   extern __shared__ float smem[];
@@ -212,9 +218,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            int H, int Hkv, float scale, float softcap, int window,
            cudaStream_t stream) {
   constexpr int LD = HD + 1;
-  const size_t smem =
+  constexpr size_t smem =
       sizeof(float) * (2 * BQ * LD + 2 * BK * LD + BQ * (BK + 1)) +
       sizeof(int) * 2 * BK;
+  static_assert(smem <= MAX_BLOCK_SMEM,
+                "K2's SIMT body does not fit a block's shared memory");
   auto kern = bam_bwd_dq_kernel<T, HD, COMPACT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -532,7 +540,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const int* tile_ptr, const int* tile_idx, int B, int Tq, int Tk,
              int H, int Hkv, float scale, float softcap, int window,
              cudaStream_t stream) {
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (!wgmma_body<T, HD>())
     return launch<T, HD, COMPACT>(q, k, v, dout, lse, delta, qb, kb, qp, kp,
                                   dq, tile_ptr, tile_idx, B, Tq, Tk, H, Hkv,
                                   scale, softcap, window, stream);
@@ -544,7 +552,9 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q/dout/dq [B,Tq,H,hd], k/v
+// dtype: 0 = float32, 1 = bfloat16; hd 64, 80, 128 or 256 (bf16 at 64 and
+// 128 on the wgmma body, the rest on the SIMT body; any other hd returns
+// cudaErrorInvalidValue). q/dout/dq [B,Tq,H,hd], k/v
 // [B,Tk,Hkv,hd], all contiguous; lse/delta f32 [B,H,Tq]; bits/pos int32
 // [B,T]. With tile_ptr set, the compacted grid: int32 CSR rows tile_ptr
 // [ceil(Tq/64)+1] and tile_idx (k tiles of 32 keys, ascending per row);
@@ -583,9 +593,13 @@ extern "C" int bam_bwd_dq(const void* q, const void* k, const void* v,
                                          kp, dq, nullptr, nullptr, B, Tq, Tk, \
                                          H, Hkv, scale, softcap, window, st)
   if (dtype == 0 && hd == 64) BAM_DQ_CASE(float, 64);
+  if (dtype == 0 && hd == 80) BAM_DQ_CASE(float, 80);
   if (dtype == 0 && hd == 128) BAM_DQ_CASE(float, 128);
+  if (dtype == 0 && hd == 256) BAM_DQ_CASE(float, 256);
   if (dtype == 1 && hd == 64) BAM_DQ_CASE(__nv_bfloat16, 64);
+  if (dtype == 1 && hd == 80) BAM_DQ_CASE(__nv_bfloat16, 80);
   if (dtype == 1 && hd == 128) BAM_DQ_CASE(__nv_bfloat16, 128);
+  if (dtype == 1 && hd == 256) BAM_DQ_CASE(__nv_bfloat16, 256);
 #undef BAM_DQ_CASE
   return (int)cudaErrorInvalidValue;
 }

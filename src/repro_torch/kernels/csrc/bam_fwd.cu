@@ -12,9 +12,10 @@
 // byte at T = 2000, far above the H100's ~295, so it is bound by
 // operations, 989 TFLOP/s of bf16 tensor cores.
 //
-// bf16 (every model path): one warpgroup of 128 threads owns a 64-row q
-// tile of one head, which is wgmma's M, and loops over 32-key tiles with
-// the online-softmax state (m, l) and the f32 output tile in registers.
+// bf16 at hd 64 and 128 (the wgmma body): one warpgroup of 128 threads
+// owns a 64-row q tile of one head, which is wgmma's M, and loops over
+// 32-key tiles with the online-softmax state (m, l) and the f32 output
+// tile in registers.
 // Blocks run in parallel, so nothing is carried between them (the TPU
 // grid carried VMEM scratch across its sequential k axis). The grid runs
 // heads fastest and the last q tiles first: a causal mask gives those
@@ -68,9 +69,13 @@
 //    allowed is an exact no-op (alpha = 1, p = 0), so for a map that
 //    covers the mask K1c writes dense K1's bits.
 //
-// float32 (parity runs only) keeps the first design unchanged: f32 FMAs
-// out of padded shared memory, two threads per q row, a block-wide skip
-// of a tile with no allowed pair.
+// The SIMT body (float32, and bf16 at hd 80 and 256, where no wgmma body
+// is built yet) keeps the first design unchanged: f32 FMAs out of padded
+// shared memory, two threads per q row, a block-wide skip of a tile with
+// no allowed pair. bf16 is converted to f32 as it is loaded, and the
+// output is rounded once as it is stored, as the plain version does. At
+// hd 256 a thread keeps 128 output columns in registers and a block
+// takes 140,288 bytes of shared memory (one block an SM).
 //
 // The compacted grid (COMPACT = true) replaces the Pallas kernel's
 // block_map path (the (q_blk, k_blk, first, last, active) scalar-prefetch
@@ -105,7 +110,7 @@ constexpr int BK = 32;     // keys per tile
 constexpr int NT = 128;    // threads per block: one warpgroup
 constexpr int JN = BK / 2; // f32: scores per thread per tile
 
-// float32: two threads per q row, f32 FMAs.
+// SIMT body: two threads per q row, f32 FMAs.
 // STATS = false: out is T [B,Tq,H,hd], lse f32 [B,H,Tq] or null.
 // STATS = true: out is f32 acc [B,H,Tq,hd], lse receives m, lsum l.
 // COMPACT = true: walk the k tiles of CSR row blockIdx.x of (tile_ptr
@@ -120,6 +125,7 @@ bam_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const int* __restrict__ tile_ptr,
                const int* __restrict__ tile_idx, int Tq, int Tk, int H,
                int Hkv, float scale, float softcap, int window) {
+  static_assert(HD % 2 == 0, "two threads split a row's columns");
   constexpr int LD = HD + 1;
   constexpr int NC = HD / 2;  // output columns per thread
   extern __shared__ float smem[];
@@ -255,9 +261,11 @@ int launch(const void* q, const void* k, const void* v, const int* qb,
            const int* tile_idx, int B, int Tq, int Tk, int H, int Hkv,
            float scale, float softcap, int window, cudaStream_t stream) {
   constexpr int LD = HD + 1;
-  const size_t smem =
+  constexpr size_t smem =
       sizeof(float) * (BQ * LD + 2 * BK * LD + BQ * (BK + 1)) +
       sizeof(int) * 2 * BK;
+  static_assert(smem <= MAX_BLOCK_SMEM,
+                "K1's SIMT body does not fit a block's shared memory");
   auto kern = bam_fwd_kernel<T, HD, STATS, COMPACT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -619,7 +627,7 @@ int dispatch(const void* q, const void* k, const void* v, const int* qb,
              float scale, float softcap, int window, cudaStream_t stream) {
 #define BAM_FWD_LAUNCH(STATS, COMPACT)                                       \
   {                                                                          \
-    if constexpr (std::is_same<T, float>::value)                             \
+    if constexpr (!wgmma_body<T, HD>())                                      \
       return launch<T, HD, STATS, COMPACT>(q, k, v, qb, kb, qp, kp, out,     \
                                            lse, lsum, tile_ptr, tile_idx, B, \
                                            Tq, Tk, H, Hkv, scale, softcap,   \
@@ -640,7 +648,9 @@ int dispatch(const void* q, const void* k, const void* v, const int* qb,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q [B,Tq,H,hd], k/v [B,Tk,Hkv,hd],
+// dtype: 0 = float32, 1 = bfloat16; hd 64, 80, 128 or 256 (bf16 at 64 and
+// 128 on the wgmma body, the rest on the SIMT body; any other hd returns
+// cudaErrorInvalidValue). q [B,Tq,H,hd], k/v [B,Tk,Hkv,hd],
 // all contiguous; bits/pos int32 [B,T]. With lsum null ("out" and
 // "residual"): out [B,Tq,H,hd] in q's type, lse f32 [B,H,Tq] or null.
 // With lsum set ("stats"): out f32 [B,H,Tq,hd] (acc), lse f32 [B,H,Tq]
@@ -674,9 +684,13 @@ extern "C" int bam_fwd(const void* q, const void* k, const void* v,
   return dispatch<TYPE, HD>(q, k, v, qb, kb, qp, kp, out, ls, lt, tp, ti,  \
                             B, Tq, Tk, H, Hkv, scale, softcap, window, st)
   if (dtype == 0 && hd == 64) BAM_FWD_CASE(float, 64);
+  if (dtype == 0 && hd == 80) BAM_FWD_CASE(float, 80);
   if (dtype == 0 && hd == 128) BAM_FWD_CASE(float, 128);
+  if (dtype == 0 && hd == 256) BAM_FWD_CASE(float, 256);
   if (dtype == 1 && hd == 64) BAM_FWD_CASE(__nv_bfloat16, 64);
+  if (dtype == 1 && hd == 80) BAM_FWD_CASE(__nv_bfloat16, 80);
   if (dtype == 1 && hd == 128) BAM_FWD_CASE(__nv_bfloat16, 128);
+  if (dtype == 1 && hd == 256) BAM_FWD_CASE(__nv_bfloat16, 256);
 #undef BAM_FWD_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -23,9 +23,23 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
+
+// The (type, head size) pairs that K1, K2 and K3 run on their wgmma
+// bodies: bf16 at hd 64 and 128, the tile layout above. Every other
+// pair their entry points take (f32; bf16 at hd 80 and 256) runs the
+// SIMT body: f32 FMAs out of padded shared memory.
+template <typename T, int HD>
+constexpr bool wgmma_body() {
+  return std::is_same<T, __nv_bfloat16>::value && (HD == 64 || HD == 128);
+}
+
+// The shared memory one block may take on an H100 (227 KB)
+constexpr size_t MAX_BLOCK_SMEM = 232448;
 
 // 2^x, flushing results below 2^-126 to 0
 __device__ __forceinline__ float ex2(float x) {

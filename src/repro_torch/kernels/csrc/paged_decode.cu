@@ -33,10 +33,11 @@
 //   different 4-bank groups. Keys the bitfields forbid get p = 0 by a
 //   select (the mask rule is bam_mask.cuh's); a stage with no allowed key
 //   for a head costs that warp no softmax and no P·V.
-// - P·V: a lane owns one 16-byte column chunk of V and 32 / (chunks per
-//   row) keys go at once, so the serial chain over a stage's keys is 2
-//   (bf16 hd 128) to 4 (bf16 hd 64) times shorter than one key per step;
-//   the key groups' sums meet once per block by warp shuffles.
+// - P·V: a lane owns one 16-byte column chunk of V (two, 32 chunks
+//   apart, where a row has 64: f32 at hd 256) and 32 / (chunks per row)
+//   keys go at once, so the serial chain over a stage's keys is 2 (bf16
+//   hd 128) to 4 (bf16 hd 64) times shorter than one key per step; the
+//   key groups' sums meet once per block by warp shuffles.
 // - Partials and combine. A row with one split normalises and writes its
 //   output directly. Otherwise each block writes its unnormalised (m, l,
 //   acc[hd]) in f32 to scratch the wrapper allocates, and takes a ticket
@@ -73,8 +74,24 @@ template <typename T, int HD>
 struct Layout {
   static constexpr int VEC = 16 / sizeof(T);       // elements in 16 bytes
   static constexpr int LPR = HD / VEC;             // 16-byte chunks a row
-  static constexpr int G = 32 / LPR;               // keys of one P·V step
+  static constexpr int LANES = LPR < 32 ? LPR : 32;  // lanes a row spans
+  static constexpr int CPL = LPR / LANES;          // chunks a lane holds
+  static constexpr int G = 32 / LANES;             // keys of one P·V step
   static constexpr int ROW = HD * sizeof(T) + 16;  // padded row, bytes
+  static_assert(LPR % LANES == 0 && 32 % LANES == 0,
+                "a row's 16-byte chunks must tile a warp");
+};
+
+// What each instantiation takes: pages of up to PAGE slots and up to REP
+// query heads per KV head (a block has 32 REP threads at most). At hd 256
+// a 64-slot page (one stage of 64 keys) would not fit three stages in
+// shared memory, so pages stop at a stage's 32 keys; and a lane holds
+// twice the columns, which at 1024 threads (64 registers a thread)
+// spills, so hd 256 takes 16 heads: 512 threads, up to 128 registers.
+template <typename T, int HD>
+struct Caps {
+  static constexpr int PAGE = HD <= 128 ? MAX_PAGE : STAGE_KEYS;
+  static constexpr int REP = HD <= 128 ? MAX_REP : 16;
 };
 
 constexpr __host__ __device__ int round16(int x) { return (x + 15) & ~15; }
@@ -92,13 +109,27 @@ constexpr __host__ __device__ int head_bytes(int n_rep, int n) {
          round16(n_rep * n * (int)sizeof(float));
 }
 
-// The ring's STAGES stages fit for every input the entry point takes:
-// the largest is f32 at hd 128, 32 query heads a KV head and 64-slot
-// pages, one page a stage (24576 + 3 x 68096 = 228864 B).
-static_assert(head_bytes<128>(MAX_REP, MAX_PAGE) +
-                      STAGES * stage_bytes<float, 128>(MAX_PAGE) <=
-                  MAX_SMEM,
-              "K4's ring does not fit in shared memory");
+// The ring's STAGES stages fit for every input an instantiation takes:
+// a stage holds max(page size, STAGE_KEYS) keys. The largest are f32 at
+// hd 128, 32 query heads a KV head and 64-slot pages, one page a stage
+// (24576 + 3 x 68096 = 228864 B); f32 at hd 256, 16 heads and 32-key
+// stages (18432 + 3 x 66816 = 218880 B); bf16 at hd 256 (18432 + 3 x
+// 34048 = 120576 B).
+template <typename T, int HD>
+constexpr int ring_bytes() {
+  constexpr int n = Caps<T, HD>::PAGE > STAGE_KEYS ? Caps<T, HD>::PAGE
+                                                    : STAGE_KEYS;
+  return head_bytes<HD>(Caps<T, HD>::REP, n) + STAGES * stage_bytes<T, HD>(n);
+}
+static_assert(ring_bytes<float, 64>() <= MAX_SMEM &&
+                  ring_bytes<float, 128>() <= MAX_SMEM &&
+                  ring_bytes<__nv_bfloat16, 64>() <= MAX_SMEM &&
+                  ring_bytes<__nv_bfloat16, 128>() <= MAX_SMEM,
+              "K4's ring does not fit in shared memory at hd 64 or 128");
+static_assert(ring_bytes<float, 256>() <= MAX_SMEM,
+              "K4's ring does not fit in shared memory: f32, hd 256");
+static_assert(ring_bytes<__nv_bfloat16, 256>() <= MAX_SMEM,
+              "K4's ring does not fit in shared memory: bf16, hd 256");
 
 // 16 bytes of T in shared memory -> floats in registers
 __device__ __forceinline__ void unpack(const float* s, float (&f)[4]) {
@@ -163,10 +194,17 @@ struct Params {
   int window;
 };
 
+// one warp per query head of the group; one block an SM is enough, so at
+// 512 threads (hd 256) a thread may hold up to 128 registers
 template <typename T, int HD>
-__global__ void __launch_bounds__(1024) paged_decode_kernel(const Params p) {
+__global__ void __launch_bounds__(32 * Caps<T, HD>::REP, 1)
+    paged_decode_kernel(const Params p) {
   using L = Layout<T, HD>;
   constexpr int VEC = L::VEC, LPR = L::LPR, G = L::G, ROW = L::ROW;
+  constexpr int LANES = L::LANES, CPL = L::CPL;
+  // chunks of a K row in flight in the score loop: 8, or 4 where a row
+  // has 64 (f32 at hd 256), to keep that instantiation's registers low
+  constexpr int SCORE_UNROLL = LPR > 32 ? 4 : 8;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int is_last;
 
@@ -233,12 +271,15 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(const Params p) {
   const QueryRule qr =
       query_rule((unsigned)p.q_bits[b], p.q_pos[b], p.window);
   float* pw = sP + warp * n_max;
-  const int kg = lane / LPR, c = lane % LPR;  // P·V: key group, chunk
+  // P·V: key group, first chunk (a lane's chunks are LANES apart)
+  const int kg = lane / LANES, c = lane % LANES;
 
   float m = NEG_INF, l = 0.f;  // l: this lane's keys' share
-  float acc[VEC];
+  float acc[CPL][VEC];
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  for (int u = 0; u < CPL; ++u)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[u][i] = 0.f;
   for (int s = 0; s < n_stages; ++s) {
     cp_async_wait_group<STAGES - 2>();  // this thread's copies of stage s
     // everyone's copies of stage s are in, and every warp is done with
@@ -259,7 +300,7 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(const Params p) {
       if (pair_allowed(qr, key_rule((unsigned)sb[j], sb[n_max + j]))) {
         const T* kr = reinterpret_cast<const T*>(base + j * ROW);
         float d[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
+#pragma unroll (SCORE_UNROLL)
         for (int cc = 0; cc < LPR; ++cc) {
           float kf[VEC];
           unpack(kr + cc * VEC, kf);
@@ -296,15 +337,20 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(const Params p) {
     m = m_new;
     __syncwarp();  // this warp's p row is written
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] *= alpha;
+    for (int u = 0; u < CPL; ++u)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[u][i] *= alpha;
     const unsigned char* vc = base + n_max * ROW + c * 16;
 #pragma unroll 2
     for (int j = kg; j < n; j += G) {
       const float e = pw[j];
-      float vf[VEC];
-      unpack(reinterpret_cast<const T*>(vc + j * ROW), vf);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] = fmaf(e, vf[i], acc[i]);
+      for (int u = 0; u < CPL; ++u) {
+        float vf[VEC];
+        unpack(reinterpret_cast<const T*>(vc + u * LANES * 16 + j * ROW), vf);
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) acc[u][i] = fmaf(e, vf[i], acc[u][i]);
+      }
     }
   }
   // the groups still committed hold no copies
@@ -312,21 +358,32 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(const Params p) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
 #pragma unroll
-  for (int o = LPR; o < 32; o <<= 1) {
+  for (int o = LANES; o < 32; o <<= 1) {
 #pragma unroll
-    for (int i = 0; i < VEC; ++i)
-      acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
+    for (int u = 0; u < CPL; ++u)
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        acc[u][i] += __shfl_xor_sync(0xffffffffu, acc[u][i], o);
   }
   if (ns == 1) {  // the row's only split: normalise and write
     const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
-    for (int i = 0; i < VEC; ++i) acc[i] *= inv;
-    if (kg == 0) pack_store(out + ((size_t)b * p.H + h) * HD + c * VEC, acc);
+    for (int u = 0; u < CPL; ++u) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[u][i] *= inv;
+      if (kg == 0)
+        pack_store(out + ((size_t)b * p.H + h) * HD + (c + u * LANES) * VEC,
+                   acc[u]);
+    }
     return;
   }
 
   const size_t at = (size_t)w * p.H + h;
-  if (kg == 0) store_f32(p.part_acc + at * HD + c * VEC, acc);
+  if (kg == 0) {
+#pragma unroll
+    for (int u = 0; u < CPL; ++u)
+      store_f32(p.part_acc + at * HD + (c + u * LANES) * VEC, acc[u]);
+  }
   if (lane == 0) p.part_ml[at] = make_float2(m, l);
   // The barrier orders every thread's partials before thread 0's fence,
   // which makes them visible before its ticket (the fence is
@@ -404,6 +461,8 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(const Params p) {
 template <typename T, int HD>
 int launch(Params p, int n_empty, cudaStream_t stream) {
   const int n_rep = p.H / p.Hkv, n_max = p.sp * p.ps;
+  if (p.ps > Caps<T, HD>::PAGE || n_rep > Caps<T, HD>::REP)
+    return (int)cudaErrorInvalidValue;
   const int smem =
       head_bytes<HD>(n_rep, n_max) + STAGES * stage_bytes<T, HD>(n_max);
   auto kern = paged_decode_kernel<T, HD>;
@@ -429,8 +488,10 @@ int launch(Params p, int n_empty, cudaStream_t stream) {
 // pages, page count), a row's splits consecutive and in page order;
 // empty int32 [n_empty]: rows with no active page. scratch: f32
 // [n_splits * H * (hd + 2)]; tickets: int32 [B * Hkv], zero, and zero
-// again when the kernel ends. All contiguous; page_size <= 64 and H / Hkv
-// <= 32. Returns cudaGetLastError() after the launch.
+// again when the kernel ends. All contiguous; hd 64, 128 or 256;
+// page_size <= 64 and H / Hkv <= 32, except at hd 256: page_size <= 32
+// and H / Hkv <= 16 (Caps; past them, or at another hd,
+// cudaErrorInvalidValue). Returns cudaGetLastError() after the launch.
 extern "C" int paged_decode(const void* q, const void* k_pages,
                             const void* v_pages, const void* q_bits,
                             const void* q_pos, const void* kv_bits,
@@ -471,9 +532,12 @@ extern "C" int paged_decode(const void* q, const void* k_pages,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64) return launch<float, 64>(p, n_empty, st);
   if (dtype == 0 && hd == 128) return launch<float, 128>(p, n_empty, st);
+  if (dtype == 0 && hd == 256) return launch<float, 256>(p, n_empty, st);
   if (dtype == 1 && hd == 64) return launch<__nv_bfloat16, 64>(p, n_empty, st);
   if (dtype == 1 && hd == 128)
     return launch<__nv_bfloat16, 128>(p, n_empty, st);
+  if (dtype == 1 && hd == 256)
+    return launch<__nv_bfloat16, 256>(p, n_empty, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -19,6 +19,8 @@ each row's pages through its page-table row (null-page padded) and run
 the dense reference.
 
 ``paged_decode_attention.launches`` counts the wrapper's kernel calls.
+The kernel takes head sizes ``HEAD_DIMS`` (64, 128 and 256) within the
+page-size and GQA caps that ``k4_caps`` states for each.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.bam_attention import DTYPE_CODES, HEAD_DIMS
+from repro_torch.kernels.bam_attention import DTYPE_CODES
 from repro_torch.kernels.ref import bam_attention_ref, masked_attention
 
 
@@ -40,6 +42,24 @@ from repro_torch.kernels.ref import bam_attention_ref, masked_attention
 TARGET_BLOCKS = 396
 STAGE_KEYS = 32
 MIN_SPLIT_STAGES = 2
+
+HEAD_DIMS = (64, 128, 256)   # what K4 takes (no path reaches it at 80)
+MAX_PAGE_SIZE = 64   # a stage of the kernel's 3-stage ring holds one such page
+MAX_REP = 32         # query heads per KV head: one warp each
+
+
+def k4_caps(hd: int) -> tuple:
+    """(largest page size, most query heads per KV head) that K4 takes
+    at head size ``hd``, in either dtype (csrc/paged_decode.cu ``Caps``).
+    At hd 256 a 3-stage ring of 64-key stages would not fit in shared
+    memory, so pages stop at STAGE_KEYS slots, and a block of 32 warps
+    would spill registers, so the heads stop at 16. Raises
+    ``ValueError`` for a head size the kernel does not take."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if hd <= 128:
+        return MAX_PAGE_SIZE, MAX_REP
+    return STAGE_KEYS, 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,9 +178,6 @@ def _entry():
     return fn
 
 
-MAX_PAGE_SIZE = 64   # a stage of the kernel's 3-stage ring holds one such page
-
-
 def paged_decode_attention(q, k_pages, v_pages, q_bits, q_pos, kv_bits,
                            kv_pos, steps, *, softcap: float = 0.0,
                            window: int = 0):
@@ -214,10 +231,12 @@ def paged_decode_attention(q, k_pages, v_pages, q_bits, q_pos, kv_bits,
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise ValueError("K/V pages must be 16-byte aligned (the kernel "
                          "copies them in 16-byte pieces)")
-    if hd not in HEAD_DIMS or H // Hkv > 32 or page_size > MAX_PAGE_SIZE:
-        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}, more than 32 "
-                         f"query heads per KV head, or page size "
-                         f"{page_size} > {MAX_PAGE_SIZE}")
+    max_page, max_rep = k4_caps(hd)
+    if H // Hkv > max_rep or page_size > max_page:
+        raise ValueError(f"K4 at head_dim {hd} takes pages of at most "
+                         f"{max_page} slots and at most {max_rep} query "
+                         f"heads per KV head; got page size {page_size}, "
+                         f"{H // Hkv} heads per KV head")
     n_splits, n_empty = steps.splits.shape[0], steps.empty.numel()
     out = torch.empty_like(q)
     scratch = torch.empty(n_splits * H * (hd + 2), dtype=torch.float32,

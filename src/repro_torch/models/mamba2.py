@@ -19,9 +19,9 @@ block (a single weight set, ``shared_attn``, reused at every
 application) is applied. Decode keeps one KV strip per shared-block
 application plus per-layer SSM and conv states.
 
-The shared block is ``transformer._block``; at zamba2's ``head_dim`` 80
-the BAM kernel path (``attn_impl="bam_kernel"``) raises the wrapper's
-``ValueError`` (the kernels take 64 or 128, ROADMAP.md item 3).
+The shared block is ``transformer._block``; on the BAM kernel path
+(``attn_impl="bam_kernel"``) zamba2's ``head_dim`` 80 runs K1, K2 and
+K3 on their SIMT bodies (``kernels.bam_attention.kernel_body``).
 """
 from __future__ import annotations
 
@@ -154,12 +154,16 @@ def ssd_chunked(xh, Bm, Cm, dt, log_a, chunk: int, h0=None):
     dtc = dt.reshape(Bsz, nc, c, nh)
     cum = torch.cumsum(log_a.reshape(Bsz, nc, c, nh), dim=2)  # [B,nc,c,nh]
 
-    # intra-chunk: quadratic within the chunk
+    # intra-chunk: quadratic within the chunk. The decay exp(cum_t - cum_i)
+    # is taken on the lower triangle only: above it cum_t - cum_i > 0
+    # overflows to inf over a long chunk (128 tokens), and a select after
+    # the exp would pass 0 * inf = NaN back to log_a
     cb = torch.einsum("bzts,bzis->bzti", Cc, Bc)            # [B,nc,c,c]
-    decay = torch.exp(cum[:, :, :, None, :] - cum[:, :, None, :, :])
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=xh.device))
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [B,nc,t,i,nh]
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], seg,
+                                  -torch.inf))
     m = cb[..., None] * decay * dtc[:, :, None, :, :]       # [B,nc,t,i,nh]
-    m = torch.where(tri[None, None, :, :, None], m, 0.0)
     y_intra = torch.einsum("bztin,bzinh->bztnh", m, xc)
 
     # chunk summaries: H_z = Σ_i exp(cum_last - cum_i) dt_i (B_i ⊗ x_i)

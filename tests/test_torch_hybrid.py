@@ -133,6 +133,39 @@ def test_ssd_chunked_matches_steps_and_jax(with_h0):
         mamba2.ssd_chunked(*t_in, 7)
 
 
+def test_ssd_chunked_grads_finite_on_a_long_chunk():
+    """zamba2's own chunk of 128 tokens with a strong decay: above the
+    diagonal cum_t - cum_i reaches hundreds, where exp overflows. The
+    chunked SSD's gradients stay finite and equal autograd through the
+    recurrence (``ssd_step`` token by token); the JAX package's
+    ``ssd_chunked``, which selects after the exp, gives NaN here."""
+    arrs, _ = _ssd_inputs(B=1, T=256, nh=2, hd=4, ds=3, seed=4)
+    xh, Bm, Cm, dt, _ = arrs
+    log_a = np.full_like(dt, -2.0)          # exp(2 x 127) overflows f32
+
+    def grads(run):
+        t_in = [torch.from_numpy(a).requires_grad_()
+                for a in (xh, Bm, Cm, dt, log_a)]
+        y, h = run(*t_in)
+        (y.square().sum() + h.sum()).backward()
+        return [t.grad for t in t_in]
+
+    def steps_(*t_in):
+        state = torch.zeros((1, 2, 4, 3))
+        ys = []
+        for t in range(xh.shape[1]):
+            yt, state = mamba2.ssd_step(*(a[:, t:t + 1] for a in t_in),
+                                        state)
+            ys.append(yt)
+        return torch.cat(ys, 1), state
+
+    got = grads(lambda *a: mamba2.ssd_chunked(*a, 128))
+    want = grads(steps_)
+    for g, w in zip(got, want):
+        assert bool(torch.isfinite(g).all())
+        _close(g.numpy(), w.numpy(), rel=1e-4)
+
+
 def test_forward_matches_jax():
     jcfg, tcfg, params, model = _setup()
     tb, jb = _batch(tcfg.vocab_size)
@@ -192,17 +225,19 @@ def test_train_step_matches_jax():
 
 def test_bam_kernel_path_matches_jax_interpret():
     """The shared block on the ``bam_kernel`` path (K1's plain version on
-    the CPU) against JAX's interpret-mode kernel, at head_dim 64 in both
-    packages: on the card the wrapper takes only 64 and 128, and
-    zamba2's 80 raises its ``ValueError`` there (``chip_smoke.py``'s
-    hybrid phase holds that)."""
-    jcfg, tcfg, params, model = _setup(head_dim=64)
-    tb, jb = _batch(tcfg.vocab_size)
-    with torch.no_grad():
-        got, _ = api.forward(model, tcfg.replace(attn_impl="bam_kernel"), tb)
-    want, _ = japi.forward(params, jcfg.replace(attn_impl="bam_interpret"),
-                           jb)
-    _close(got.numpy(), want)
+    the CPU) against JAX's interpret-mode kernel, for each head_dim in
+    both packages: 64 (the kernels' wgmma body in bf16 on the card) and
+    zamba2's 80 (their SIMT body; ``chip_smoke.py``'s hybrid phase holds
+    the full-width prefill and train step there)."""
+    for head_dim in (64, 80):
+        jcfg, tcfg, params, model = _setup(head_dim=head_dim)
+        tb, jb = _batch(tcfg.vocab_size)
+        with torch.no_grad():
+            got, _ = api.forward(model, tcfg.replace(attn_impl="bam_kernel"),
+                                 tb)
+        want, _ = japi.forward(params,
+                               jcfg.replace(attn_impl="bam_interpret"), jb)
+        _close(got.numpy(), want)
 
 
 def test_bridge_round_trip():
