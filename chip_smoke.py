@@ -25,9 +25,11 @@ line is printed only when every phase ran and passed):
    libraries, ``HGMMA`` instructions counted per kernel instantiation
    and printed beside ptxas' registers and spills; a check per library
    fails unless each of its wgmma-body instantiations (bf16 at hd 64
-   and 128, ``*_mma_kernel``: 8 of K1, 4 of K2, 4 of K3) has HGMMA and no
-   spill, another unless as many bf16 SIMT-body instantiations (hd 80
-   and 256) are there without HGMMA (their spills printed), and another
+   and 128 for K2, 64, 80, 128 and 256 for K1 and K3,
+   ``*_mma_kernel``: 16 of K1, 4 of K2, 8 of K3) has HGMMA and no spill,
+   another unless K2's 4 bf16 SIMT-body instantiations (hd 80 and 256)
+   are there without HGMMA (their spills printed; K1 and K3 have none),
+   and another
    unless none of K4's 6 instantiations (hd 64, 128, 256) spills.
 2. Hold each kernel against its plain PyTorch version on the card at its
    main path's shapes, printing max abs error beside its tolerance,
@@ -66,14 +68,16 @@ line is printed only when every phase ran and passed):
      against one 1024-key ring chunk with rows that see no key there
      (exactly m = -1e30, l = 0, acc = 0); the four chunks' stats combined
      against one K1 residual call; K2 and K3 at Tq 1024, Tk 4096.
-2c. (part of ``kernels``) head sizes 80 and 256, on the SIMT bodies:
+2c. (part of ``kernels``) head sizes 80 and 256, K1 and K3 on their
+   wgmma bodies in bf16 (80 padded to 128), K2 and f32 on the SIMT ones:
    K1 (out, residual, stats), K1c (three modes), K2, K2c, K3 and K3c at
    gemma2-9b's heads (q [1,2048,16,256], k/v 8 heads, softcap 50, window
    4096) and zamba2-2.7b's (q [1,2048,32,80], k/v 32 heads), bf16 and
    f32, on ``lm_batch``'s bits (512 text, 1024 modality-1, 512 text):
    each within ``compare`` (``compare_stats``) of its plain version, the
    compacted grid torch.equal to the dense one, K3 bit-identical on a
-   second run, ``kernel_body`` "simt"; kernel, plain, SDPA and bound ms
+   second run, ``kernel_body`` per kernel ("wgmma" for bf16 K1 and K3,
+   "simt" for K2 and f32); kernel, plain, SDPA and bound ms
    of each in both dtypes (K4 at 256 is one of phase 2's K4 cases). On
    CUDA tensors K1-K3 refuse head_dim 96 and K4 96, 80, and at
    256 more than 16 heads per KV head and 64-slot pages.
@@ -158,8 +162,8 @@ line is printed only when every phase ran and passed):
    at full width and depth in bf16 (2.42 B parameters): ``make_prefill``
    over B 1 x T 2048 with multimodal bits on attn_impl="bam_kernel"
    (counts zeroed just before and read just after: K1 exactly 9
-   launches, one per shared-block call at head_dim 80, and no other
-   kernel) and on the plain path, ms and peak, both last-position
+   launches, one per shared-block call at head_dim 80, on its wgmma
+   body, and no other kernel) and on the plain path, ms and peak, both last-position
    logits against an f32 forward of the same weights
    (``DENSE_BF16_FACTOR``); the serve loop of phase 4b (plain, no
    kernel); one Mamba2 block at full width in f32, the chunked SSD over
@@ -176,8 +180,8 @@ line is printed only when every phase ran and passed):
    parity rule (f32 at 2 layers identical greedy tokens; bf16 full depth
    agreement printed); (b) the all-local variant
    (``long_context_variant``) prefilled over B 1 x T 2048 with
-   multimodal bits through K1 (42 launches) and on the plain path, both
-   against an f32 forward of the same weights; (c) one f32 AdamW step at
+   multimodal bits through K1 (42 launches, its wgmma body at 256) and
+   on the plain path, both against an f32 forward of the same weights; (c) one f32 AdamW step at
    depth 2 of the all-local variant through K1-K3 (softcap 50) against
    the plain step within ``DENSE_F32_REL``; (d) 2 bf16 AdamW steps at
    depth 4, every parameter trainable (K1 once a layer, twice under
@@ -316,6 +320,13 @@ line is printed only when every phase ran and passed):
 8. CP parity: at f32, full width, 2 layers, the CP step (both methods,
    kernels) and the plain non-CP step (attn_impl="xla") give the same
    loss (rel 1e-5) and grad_norm (rel 1e-4) at each of 3 steps.
+8b. gemma2-9b's CP step on the same group: full width, depth
+   ``GEMMA_TRAIN_LAYERS`` (local and global layers alternating), bf16,
+   one allgather step in the CP layout (counts zeroed just before and
+   read just after: K1 stats once a layer, twice under remat, on its
+   wgmma body at head_dim 256, K2 and K3 once a layer, nothing else)
+   against the plain non-CP step from the same weights and batch (loss
+   and grad_norm within rel 2e-2).
 9. Print a ``{"kernels": [...]}`` line, the nvidia-smi line, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -426,12 +437,13 @@ def ptxas_by_function(report: str):
     return out
 
 
-# the libraries whose bf16 instantiations at hd 64 and 128 run on the
-# tensor cores (the wgmma bodies, "_mma_kernel"), and how many each has:
-# K1 (3 modes' epilogues x compact x hd), K2, K3 (compact x hd); and as
-# many bf16 instantiations of the SIMT body at hd 80 and 256
-SASS_LIBS = {"bam_fwd": ("K1", 8), "bam_bwd_dq": ("K2", 4),
-             "bam_bwd_dkv": ("K3", 4)}
+# the libraries whose bf16 instantiations run on the tensor cores (the
+# wgmma bodies, "_mma_kernel"): (kernel, wgmma-body instantiations, bf16
+# SIMT-body instantiations). K1 (stats x compact x hd 64, 80, 128, 256)
+# and K3 (compact x the four hds) run every bf16 size on wgmma; K2
+# (compact x hd 64, 128) keeps bf16 at 80 and 256 on its SIMT body
+SASS_LIBS = {"bam_fwd": ("K1", 16, 0), "bam_bwd_dq": ("K2", 4, 4),
+             "bam_bwd_dkv": ("K3", 8, 0)}
 
 
 def short_name(fn: str) -> str:
@@ -450,11 +462,12 @@ def sass_check(smoke: Smoke, _build) -> None:
     """HGMMA instructions per kernel instantiation of the built bam_fwd,
     bam_bwd_dq and bam_bwd_dkv libraries (cuobjdump --dump-sass), printed
     beside ptxas' registers and spills. Every wgmma-body instantiation of
-    K1 (8), K2 (4) and K3 (4) must hold HGMMA and spill nothing; the bf16
-    SIMT-body instantiations at hd 80 and 256 (as many) must be there and
-    hold no HGMMA (their spills are printed, not checked)."""
+    K1 (16: hd 64, 80, 128, 256), K2 (4: 64, 128) and K3 (8: the four
+    hds) must hold HGMMA and spill nothing; K2's 4 bf16 SIMT-body
+    instantiations (hd 80 and 256) must be there and hold no HGMMA (their
+    spills are printed, not checked), and K1 and K3 have none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for lib, (key, want) in SASS_LIBS.items():
+    for lib, (key, want, want_simt) in SASS_LIBS.items():
         try:
             sass = subprocess.run([tool, "--dump-sass",
                                    str(_build._lib_path(lib))],
@@ -484,12 +497,11 @@ def sass_check(smoke: Smoke, _build) -> None:
                 simt.append(count == 0)
         smoke.check(len(mma) == want and all(mma),
                     f"{key} SASS: {sum(mma)} of {len(mma)} wgmma-body "
-                    f"instantiations (bf16, hd 64 and 128; want {want}) "
-                    f"hold HGMMA and spill nothing")
-        smoke.check(len(simt) == want and all(simt),
+                    f"instantiations (bf16; want {want}) hold HGMMA and "
+                    f"spill nothing")
+        smoke.check(len(simt) == want_simt and all(simt),
                     f"{key} SASS: {len(simt)} bf16 SIMT-body "
-                    f"instantiations (hd 80 and 256; want {want}), none "
-                    f"with HGMMA")
+                    f"instantiations (want {want_simt}), none with HGMMA")
 
 
 # ---------------------------------------------------------------------------
@@ -1345,7 +1357,8 @@ COMPACT_T, COMPACT_LAYOUTS = 4096, ("ep", "ee", "mp")
 
 
 # ---------------------------------------------------------------------------
-# Phase 2c: head sizes 80 and 256 (the SIMT bodies of K1-K3; K4 at 256)
+# Phase 2c: head sizes 80 and 256 (K1 and K3 on wgmma in bf16, K2 on
+# its SIMT body; K4 at 256)
 # ---------------------------------------------------------------------------
 
 HD_T = 2048
@@ -1361,7 +1374,9 @@ def head_dim_cases(smoke: Smoke):
     ``mm_bits``: each within ``compare`` (stats: ``compare_stats``) of its
     plain version, the compacted grid (a map built at the kernels' tile
     for the case's window) torch.equal to the dense one, K3 bit-identical
-    on a second run, the SIMT body serving every call (``kernel_body``).
+    on a second run, ``kernel_body`` naming the body that serves each
+    call: in bf16 "wgmma" for K1 and K3 and "simt" for K2, in f32
+    "simt".
     Times of every kernel (kernel, plain, SDPA or its backward, bound) in
     both dtypes. Then the refusals (``head_dim_refusals``); K4 at 256 is
     one of ``k4_cases``."""
@@ -1382,7 +1397,10 @@ def head_dim_cases(smoke: Smoke):
         mask = bam.allowed_mask(bits, bits, pos, pos, window)   # [1,T,T]
         for dt in ("bfloat16", "float32"):
             dtype = getattr(torch, dt)
-            body = kernel_body(hd, dtype)
+            bodies = {kk: kernel_body(hd, dtype, kk)
+                      for kk in ("K1", "K2", "K3")}
+            tc = "wgmma" if dt == "bfloat16" else "simt"
+            want = {"K1": tc, "K2": "simt", "K3": tc}
             q, do = (torch.randn((1, HD_T, H, hd), generator=gen,
                                  device="cuda").to(dtype) for _ in range(2))
             k, v = (torch.randn((1, HD_T, Hkv, hd), generator=gen,
@@ -1391,7 +1409,7 @@ def head_dim_cases(smoke: Smoke):
             kw = dict(softcap=softcap, window=window)
             name = (f"hd {hd} ({model}: {H}/{Hkv} heads) T={HD_T} text/"
                     f"modality-1/text {dt} softcap={softcap} "
-                    f"window={window}, {body} body")
+                    f"window={window}")
             errs = {}
             for mode in RETURN_MODES:
                 dense = bam_flash_attention(*fargs, return_mode=mode, **kw)
@@ -1415,11 +1433,12 @@ def head_dim_cases(smoke: Smoke):
                     label = "K1s" if key == "K1" and mode == "stats" else key
                     errs[(label, mode)] = (err, ratio)
                     smoke.check(ratio <= 1.0 and err_lse <= 1e-3 and equal
-                                and body == "simt",
-                                f"{key} {mode} {name}: max_abs_err {err:.3e} "
-                                f"(tol {TOL_TEXT[dt]}; worst |d|/tol "
-                                f"{ratio:.3f}), lse {err_lse:.3e} (tol "
-                                f"1e-3); torch.equal to the dense K1: "
+                                and bodies["K1"] == want["K1"],
+                                f"{key} {mode} {name}, {bodies['K1']} body "
+                                f"(want {want['K1']}): max_abs_err "
+                                f"{err:.3e} (tol {TOL_TEXT[dt]}; worst "
+                                f"|d|/tol {ratio:.3f}), lse {err_lse:.3e} "
+                                f"(tol 1e-3); torch.equal to the dense K1: "
                                 f"{equal}")
                     del plain
                 del dense, comp
@@ -1449,8 +1468,10 @@ def head_dim_cases(smoke: Smoke):
                 errs[(key, None)] = (err, ratio)
                 what = ("second run bit-identical" if key == "K3" else
                         "torch.equal to the dense kernel")
-                smoke.check(ratio <= 1.0 and eq,
-                            f"{key} {name}: max_abs_err {err:.3e} (tol "
+                body = bodies[key[:2]]
+                smoke.check(ratio <= 1.0 and eq and body == want[key[:2]],
+                            f"{key} {name}, {body} body (want "
+                            f"{want[key[:2]]}): max_abs_err {err:.3e} (tol "
                             f"{TOL_TEXT[dt]}; worst |d|/tol {ratio:.3f}); "
                             f"{what}: {eq}")
                 del plain
@@ -1458,7 +1479,7 @@ def head_dim_cases(smoke: Smoke):
             head_dim_times(smoke, bm, mask, fargs, bargs, errs, kw,
                            f"q[1,{HD_T},{H},{hd}] kv[1,{HD_T},{Hkv},{hd}] "
                            f"{dt} text/modality-1/text softcap {softcap} "
-                           f"window {window} ({model})", body)
+                           f"window {window} ({model})", bodies)
             del q, k, v, do, out, lse, delta, fargs, bargs
             gc.collect()
             torch.cuda.empty_cache()
@@ -1466,7 +1487,7 @@ def head_dim_cases(smoke: Smoke):
 
 
 def head_dim_times(smoke: Smoke, bm, mask, fargs, bargs, errs, kw,
-                   shape: str, body: str) -> None:
+                   shape: str, bodies: dict) -> None:
     """Kernel, plain, SDPA (boolean mask; its backward for K2 and K3) and
     bound ms of K1 (residual), K1 stats, K1c (residual), K2, K2c, K3 and
     K3c at one head-size case; the rows go under
@@ -1549,6 +1570,7 @@ def head_dim_times(smoke: Smoke, bm, mask, fargs, bargs, errs, kw,
         err = max(e for (kk, _), (e, _r) in errs.items() if kk == key)
         ratio = max(r for (kk, _), (_e, r) in errs.items() if kk == key)
         sdpa = "SDPA" if key.startswith("K1") else "SDPA backward"
+        body = bodies[key[:2]]
         print(f"{key} {shape}: {body} body, kernel {ms:.3f} ms, plain "
               f"{plain:.3f} ms, {sdpa} with bool mask {lib:.3f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}); {flops / ms / 1e9:.1f} TFLOP/s "
@@ -2892,6 +2914,7 @@ def hybrid_phase(smoke: Smoke):
     one f32 AdamW step at depth ``HYB_TRAIN_LAYERS`` through K1-K3 at 80
     against the plain step."""
     torch = smoke.torch
+    from repro_torch.kernels.bam_attention import kernel_body
     from repro_torch.models import api
     from repro_torch.training import steps
 
@@ -2918,10 +2941,12 @@ def hybrid_phase(smoke: Smoke):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     smoke.launches["hybrid"] = dict(counts)
     others = {k: n for k, n in counts.items() if k != "K1" and n}
-    smoke.check(counts["K1"] == n_calls and not others,
+    body = kernel_body(cfg.head_dim, torch.bfloat16, "K1")
+    smoke.check(counts["K1"] == n_calls and not others and body == "wgmma",
                 f"{cfg.name}: K1 launched {counts['K1']} times in one bf16 "
                 f"prefill = {n_calls} shared-block calls (head_dim "
-                f"{cfg.head_dim}, SIMT body); other kernels {others or 0}")
+                f"{cfg.head_dim}, {body} body); other kernels "
+                f"{others or 0}")
     smoke.check(bool(torch.isfinite(lk).all())
                 and lk.shape == (1, 1, cfg.vocab_size),
                 f"{cfg.name} bf16 prefill logits finite, shape "
@@ -3080,6 +3105,7 @@ def gemma2_phase(smoke: Smoke):
     variant: the alternation stays on the plain path off CP)."""
     torch = smoke.torch
     from repro_torch.configs import gemma2_9b
+    from repro_torch.kernels.bam_attention import kernel_body
     from repro_torch.models import api
     from repro_torch.training import steps
 
@@ -3177,11 +3203,12 @@ def gemma2_phase(smoke: Smoke):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     smoke.launches["gemma2"] = dict(counts)
     others = {k: n for k, n in counts.items() if k != "K1" and n}
+    body = kernel_body(lc.head_dim, torch.bfloat16, "K1")
     smoke.check(counts["K1"] == lc.num_layers and not others
-                and bool(torch.isfinite(lk).all()),
+                and bool(torch.isfinite(lk).all()) and body == "wgmma",
                 f"{lc.name}: K1 launched {counts['K1']} times in one bf16 "
                 f"prefill = {lc.num_layers} layers (head_dim {lc.head_dim}, "
-                f"window {lc.sliding_window}, SIMT body); other kernels "
+                f"window {lc.sliding_window}, {body} body); other kernels "
                 f"{others or 0}; logits finite")
     ms = cuda_ms(torch, lambda: prefill(model, batch), iters=3, warmup=1)
     plain = steps.make_prefill(lc.replace(attn_impl="xla"))
@@ -5069,9 +5096,76 @@ def cp_parity_phase(smoke: Smoke, group):
                         f"{gp:.7f} (rel {rg:.2e}, tol 1e-4)")
 
 
+def gemma2_cp_phase(smoke: Smoke, group):
+    """gemma2-9b at full width, depth ``GEMMA_TRAIN_LAYERS`` (local and
+    global layers alternating), bf16, all parameters trainable: one
+    allgather CP step on the world-size-1 NCCL group, in the CP layout's
+    4-rank plan, through K1 stats, K2 and K3 at head_dim 256, against the
+    plain non-CP step (attn_impl="xla") from the same weights and batch
+    (the CP phase's bf16 tolerance, 2e-2 relative)."""
+    torch = smoke.torch
+    from repro_torch.kernels.bam_attention import kernel_body
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.training.steps import make_train_step
+
+    lay = cp_layout()
+    cfg = full_config("gemma2-9b").replace(num_layers=GEMMA_TRAIN_LAYERS,
+                                           attn_impl="bam_kernel")
+    ocfg = opt.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10)
+    batch = cp_batches(torch, cfg.vocab_size, lay, 1)[0]
+    runs = {}
+    for name in ("cp", "plain"):
+        model = cp_model(torch, cfg, SEED + 19)
+        state = opt.init(ocfg, dict(model.named_parameters()))
+        step = (cp_step(cfg, lay, group, ocfg, "allgather") if name == "cp"
+                else make_train_step(cfg.replace(attn_impl="xla"), ocfg))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        _, _, met = step(model, state, batch)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        runs[name] = dict(loss=loss, grad_norm=gnorm,
+                          ms=(time.perf_counter() - t0) * 1e3,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                          launches=kernel_counts())
+        del model, state, step, met
+        gc.collect()
+        torch.cuda.empty_cache()
+    cp, plain = runs["cp"], runs["plain"]
+    L, fwd = cfg.num_layers, 2 if cfg.remat else 1
+    want = {"K1s": L * fwd, "K2": L, "K3": L}
+    got = {k: cp["launches"][k] for k in want}
+    others = {k: n for k, n in cp["launches"].items() if k not in want and n}
+    body = kernel_body(cfg.head_dim, torch.bfloat16, "K1")
+    smoke.launches["gemma2_cp"] = dict(cp["launches"])
+    smoke.check(got == want and not others and body == "wgmma"
+                and not any(plain["launches"].values()),
+                f"{cfg.name} CP allgather step, depth {L}: launches {got} "
+                f"(want {want}: {L} layers, remat {cfg.remat}), others "
+                f"{others or 0}, K1 stats on its {body} body at head_dim "
+                f"{cfg.head_dim}; the plain step launched "
+                f"{sum(plain['launches'].values())}")
+    rl = abs(cp["loss"] - plain["loss"]) / abs(plain["loss"])
+    rg = abs(cp["grad_norm"] - plain["grad_norm"]) / abs(plain["grad_norm"])
+    smoke.check(np.isfinite([cp["loss"], cp["grad_norm"]]).all()
+                and rl <= 2e-2 and rg <= 2e-2,
+                f"bf16 {cfg.name} full width depth {L}, T {CP_T} (CP "
+                f"layout, world size 1): CP allgather loss {cp['loss']:.6f} "
+                f"vs plain non-CP {plain['loss']:.6f} (rel {rl:.2e}), "
+                f"grad_norm {cp['grad_norm']:.6f} vs "
+                f"{plain['grad_norm']:.6f} (rel {rg:.2e}); tol 2e-2")
+    print(f"{cfg.name} depth {L} CP allgather step {cp['ms']:.1f} ms, "
+          f"peak {cp['peak_gib']:.2f} GiB; plain step {plain['ms']:.1f} ms, "
+          f"peak {plain['peak_gib']:.2f} GiB (first calls) [{smoke.smi}]",
+          flush=True)
+    smoke.gemma2_cp = runs
+
+
 def cp_phases(smoke: Smoke):
     """Phases 7 and 8 on a NCCL process group of world size 1 (NCCL
-    refuses two ranks on one card), destroyed at the end."""
+    refuses two ranks on one card), then gemma2-9b's CP step on the same
+    group (K1 stats at head_dim 256), destroyed at the end."""
     torch = smoke.torch
     import torch.distributed as dist
     dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
@@ -5082,6 +5176,9 @@ def cp_phases(smoke: Smoke):
         gc.collect()
         torch.cuda.empty_cache()
         cp_parity_phase(smoke, group)
+        gc.collect()
+        torch.cuda.empty_cache()
+        gemma2_cp_phase(smoke, group)
     finally:
         dist.destroy_process_group()
 

@@ -23,10 +23,11 @@ of each pair of k-major rows). Pairs outside the map's tiles count as
 masked, so the plain versions AND the mask with ``core.bam.tile_mask``.
 
 Head sizes (``kernel_body``): the kernels take ``HEAD_DIMS`` = 64, 80,
-128 and 256. bf16 at 64 and 128 runs the wgmma bodies (Hopper's tensor
-cores); f32, and bf16 at 80 and 256, run the SIMT bodies (f32 FMAs out
-of padded shared memory). Any other head size raises ``ValueError`` on
-a CUDA tensor.
+128 and 256. bf16 runs the wgmma bodies (Hopper's tensor cores) at
+``WGMMA_HEAD_DIMS[kernel]``: every size for K1 and K3 (80 padded to 128
+in shared memory), 64 and 128 for K2; f32 at every size, and K2 in bf16
+at 80 and 256, run the SIMT bodies (f32 FMAs out of padded shared
+memory). Any other head size raises ``ValueError`` on a CUDA tensor.
 
 The [T, T] mask is never materialised by a kernel: each tile of it is
 evaluated from the int32 bitfield and position vectors. A CPU tensor
@@ -50,7 +51,8 @@ from repro_torch.kernels.ref import (NEG_INF, masked_attention,  # noqa: F401
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 128, 256)      # what K1, K2 and K3 take
-WGMMA_HEAD_DIMS = (64, 128)         # bf16 on the tensor cores
+# bf16 on the tensor cores, by kernel
+WGMMA_HEAD_DIMS = {"K1": HEAD_DIMS, "K2": (64, 128), "K3": HEAD_DIMS}
 RETURN_MODES = ("out", "residual", "stats")
 # the kernels' tile (csrc/*.cu: BQ x BK), which a block map must share
 BLOCK_Q, BLOCK_K = 64, 32
@@ -75,14 +77,14 @@ def check_block_map(block_map, Tq: int, Tk: int, window: int) -> None:
                          f"{block_map.window}, the call has {window}")
 
 
-def kernel_body(hd: int, dtype) -> str:
-    """The body of K1, K2 and K3 that a CUDA call at head size ``hd`` in
-    ``dtype`` runs: ``"wgmma"`` (bf16 at ``WGMMA_HEAD_DIMS``) or
-    ``"simt"``. Raises ``ValueError`` for a head size the kernels do not
-    take."""
+def kernel_body(hd: int, dtype, kernel: str) -> str:
+    """The body of ``kernel`` ("K1", "K2" or "K3") that a CUDA call at
+    head size ``hd`` in ``dtype`` runs: ``"wgmma"`` (bf16 at
+    ``WGMMA_HEAD_DIMS[kernel]``) or ``"simt"``. Raises ``ValueError`` for
+    a head size the kernels do not take."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    wgmma = dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS
+    wgmma = dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS[kernel]
     return "wgmma" if wgmma else "simt"
 
 
@@ -184,7 +186,7 @@ def bam_flash_attention(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *,
         raise ValueError("bam_flash_attention needs contiguous inputs")
     B, Tq, H, hd = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
-    kernel_body(hd, q.dtype)
+    kernel_body(hd, q.dtype, "K1")
     stats = return_mode == "stats"
     row = dict(dtype=torch.float32, device=q.device)
     out = torch.empty((B, H, Tq, hd), **row) if stats else torch.empty_like(q)
@@ -309,7 +311,7 @@ def _bwd_entry(name: str, n_out: int):
 
 
 def _check_bwd(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos,
-               block_map, window):
+               block_map, window, kernel: str):
     """Shapes and the block map always; device, dtype and layout for a
     launch (returns True when the inputs are on the CPU and the plain
     version runs)."""
@@ -336,7 +338,7 @@ def _check_bwd(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos,
         raise ValueError("bits and positions must be int32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the BAM backward kernels need contiguous inputs")
-    kernel_body(hd, q.dtype)
+    kernel_body(hd, q.dtype, kernel)
     return False
 
 
@@ -366,7 +368,7 @@ def bam_bwd_dq(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos, *,
     ``block_map`` each q block walks only its active k tiles."""
     args = (q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos)
     kw = dict(softcap=softcap, window=window, block_map=block_map)
-    if _check_bwd(*args, block_map, window):
+    if _check_bwd(*args, block_map, window, "K2"):
         return bam_bwd_dq_torch(*args, **kw)
     dq = torch.empty_like(q)
     rc = _bwd_entry("bam_bwd_dq", 1)(
@@ -393,13 +395,13 @@ def bam_bwd_dkv(q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos, *,
     pairs in a q block its own row does not list."""
     args = (q, k, v, do, lse, delta, q_bits, kv_bits, q_pos, kv_pos)
     kw = dict(softcap=softcap, window=window, block_map=block_map)
-    if _check_bwd(*args, block_map, window):
+    if _check_bwd(*args, block_map, window, "K3"):
         return bam_bwd_dkv_torch(*args, **kw)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rc = _bwd_entry("bam_bwd_dkv", 2)(
         *_bwd_args(*args), dk.data_ptr(), dv.data_ptr(),
         *_csr_args(block_map, q.device,
-                   "k64" if kernel_body(q.shape[3], q.dtype) == "wgmma"
+                   "k64" if kernel_body(q.shape[3], q.dtype, "K3") == "wgmma"
                    else "k"),
         *_bwd_scalars(q, k, softcap, window))
     _build.check("bam_bwd_dkv", rc)

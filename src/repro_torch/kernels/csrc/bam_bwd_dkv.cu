@@ -22,10 +22,11 @@
 // skip, never position alone, because a modality's queries attend both
 // ways within their stream. Ragged Tq and Tk load as zeros with bits 0.
 //
-// bf16 at hd 64 and 128 (the wgmma body): K2's design transposed, keys
-// as wgmma's M. One warpgroup of 128 threads owns 64 keys (two of the
-// block map's 32-key columns) of one KV head and loops over its query
-// heads and, for each, over 32-row q tiles:
+// bf16 at hd 64, 80, 128 and 256 (the wgmma body): K2's design
+// transposed, keys as wgmma's M. One warpgroup of 128 threads (two at hd
+// 256, below) owns 64 keys (two of the block map's 32-key columns) of one
+// KV head and loops over its query heads and, for each, over 32-row q
+// tiles:
 //  - S^T = K·Q^T and dP^T = V·dO^T are wgmma m64n32k16 with K and V
 //    resident and the q tile's Q and dO in shared memory (bam_mma.cuh's
 //    128-byte swizzle), loaded by cp.async with the rows' bits,
@@ -51,10 +52,38 @@
 //    (128 f32 a thread at hd 128), two tiles' S^T / dP^T and the
 //    fragments fit one warpgroup: ptxas gives 255 registers and no spill
 //    (on an H100 this overlap took K3 from 0.239 to 0.217 ms at the vlm
-//    layout). Two blocks share an SM. The grid runs KV heads fastest and
+//    layout; this body takes its warp index without hd 256's
+//    warpgroup split, which spilled 16 bytes). Two blocks share an SM. The grid runs KV heads fastest and
 //    the first keys first: under a causal mask those see the most q
 //    rows, and blocks i and i + (number of SMs), which tend to share an
 //    SM, pair a long block with a short one.
+//  - hd 80 runs on bam_mma.cuh's layout padded to 128: chunks 10-15 of
+//    each K, V, Q and dO row are zeros written by cp.async with no
+//    global read, S^T and dP^T take 5 k16 steps each (the zero tail adds
+//    nothing), the products run at N 128 on the padded tiles (the hd 128
+//    body's 255 registers and ~83 KB), and only the 80 real columns of
+//    dK and dV are stored.
+//  - hd 256 (two consumer warpgroups, 256 threads): dK and
+//    dV of 64 keys x 256 columns are 256 f32 a thread in one warpgroup,
+//    which cannot fit. Warpgroup w owns columns [128 w, 128 w + 128) of
+//    both, 128 accumulators a thread, the hd 128 body's budget, and
+//    computes S^T and dP^T whole itself (16 + 16 k16 steps over all 256
+//    columns), so the two warpgroups share nothing but the tiles and the
+//    block's barriers, and each key's sums run in the same order as in
+//    one warpgroup: dK and dV keep the same bits from run to run, with no
+//    atomics. The price is S^T and dP^T twice (8 products a tile where
+//    the split needs 6). Two passes (dV, then dK) would hold 128
+//    accumulators in one warpgroup too, but compute S^T twice all the
+//    same, read Q twice, and run 128 threads an SM, against 256 here.
+//    K and V resident (64 KB) and three buffers each of Q and dO (96
+//    KB): ~163 KB, one block an SM (registers: 256 x 255). Here the
+//    products of step j finish before P^T(j + 1) and dS^T(j + 1) are
+//    computed: with their A fragments (32 registers) live beside that
+//    arithmetic ptxas spills, without the overlap it spills nothing (on
+//    an H100 it ran 0.718 ms at gemma2-9b's heads, T 2048, against 0.739
+//    with the overlap and a 52-byte spill). The K and V descriptors of each k16 step are
+//    formed where they are used (bam_mma.cuh::desc_add): hoisted out of
+//    the loop, all 32 of them add to the spill.
 //  - Before the loop the block lists the q tiles to compute from bits
 //    alone (bam_tiles.cuh: the keys' summary against each tile's rows),
 //    so a skipped tile costs no load.
@@ -67,13 +96,11 @@
 //    no pair of which is allowed adds exact zeros, so for a map that
 //    covers the mask K3c writes dense K3's bits.
 //
-// The SIMT body (float32, and bf16 at hd 80 and 256, where no wgmma body
-// is built yet; bf16 converted to f32 on load, dK and dV rounded once on
-// store) keeps the first design unchanged: f32 FMAs out of padded shared
-// memory. At hd 256 a thread keeps 64 columns each of dK and dV in
-// registers and a block takes 140,544 bytes of shared memory. One block
-// owns one (32-key tile, KV head,
-// batch row); four threads share a key: in the score phase each computes
+// The SIMT body (float32 at every head size) keeps the first design
+// unchanged: f32 FMAs out of padded shared memory. At hd 256 a thread
+// keeps 64 columns each of dK and dV in registers and a block takes
+// 140,544 bytes of shared memory. One block owns one (32-key tile, KV
+// head, batch row); four threads share a key: in the score phase each computes
 // the (S, dP) pairs of 8 of the tile's 32 q rows; in the product phase
 // each owns every fourth dK and dV column. A q tile with no allowed pair
 // for this key tile is skipped after reading only its bits and
@@ -287,15 +314,22 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 constexpr int MMA_BK = 64;   // keys per block: wgmma's M
 constexpr int NQB = 3;       // buffers each of Q and dO, with their rows
 
+// consumer warpgroups of the bf16 kernel: two at hd 256, each owning 128
+// of dK's and dV's columns
+__host__ __device__ constexpr int mma_wgs(int hd) {
+  return hd == 256 ? 2 : 1;
+}
+
 // shared memory of the bf16 kernel: K, V, the Q and dO buffers, the
 // rows' bits, positions, lse and delta per buffer, the keys' summary,
 // two bits per candidate q tile (compute it; every pair allowed), the
 // list of tiles to compute, and room to align the tiles to 1024 bytes
 template <int HD>
 size_t mma_dkv_smem(int Tq) {
+  constexpr int HP = padded_hd(HD);
   const int nq = 2 * ((Tq + MAP_BQ - 1) / MAP_BQ);   // candidate q tiles
-  return 1024 + 2 * MMA_BK * HD * 2 + 2 * NQB * BQ * HD * 2 +
-         NQB * 4 * BQ * sizeof(int) + 32 * sizeof(int) +
+  return 1024 + 2 * MMA_BK * HP * 2 + 2 * NQB * BQ * HP * 2 +
+         NQB * 4 * BQ * sizeof(int) + mma_wgs(HD) * 32 * sizeof(int) +
          2 * ((nq + 31) / 32) * sizeof(unsigned) + (nq + 1) * sizeof(int);
 }
 
@@ -303,7 +337,7 @@ size_t mma_dkv_smem(int Tq) {
 // [ceil(Tk/64)+1], tile_idx: 4 q block + half flags); COMPACT = false:
 // every q tile (both null).
 template <int HD, bool COMPACT>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT * mma_wgs(HD))
 bam_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
@@ -321,23 +355,31 @@ bam_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        int H, int Hkv, float scale, float softcap,
                        int window) {
   static_assert(MAP_BQ == 2 * BQ, "a map q block is two q tiles");
-  constexpr int KT = MMA_BK * HD * 2;   // bytes of the K (or V) tile
-  constexpr int QT = BQ * HD * 2;       // bytes of one Q (or dO) tile
-  constexpr int NO = HD / 2;            // dK (and dV) values per thread
+  constexpr int HP = padded_hd(HD);     // head size of the tile layout
+  constexpr int NWG = mma_wgs(HD);      // warpgroups
+  constexpr int MT = NT * NWG;          // threads
+  constexpr int HN = HP / NWG;          // dK (and dV) columns a warpgroup
+  constexpr int KT = MMA_BK * HP * 2;   // bytes of the K (or V) tile
+  constexpr int QT = BQ * HP * 2;       // bytes of one Q (or dO) tile
+  constexpr int NO = HN / 2;            // dK (and dV) values per thread
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* sm =
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  const uint32_t sK = smem_u32(sm);        // [MMA_BK][HD] swizzled
-  const uint32_t sV = sK + KT;             // [MMA_BK][HD]
-  const uint32_t sQ = sV + KT;             // NQB x [BQ][HD]
-  const uint32_t sDO = sQ + NQB * QT;      // NQB x [BQ][HD]
+  const uint32_t sK = smem_u32(sm);        // [MMA_BK][HP] swizzled
+  const uint32_t sV = sK + KT;             // [MMA_BK][HP]
+  const uint32_t sQ = sV + KT;             // NQB x [BQ][HP]
+  const uint32_t sDO = sQ + NQB * QT;      // NQB x [BQ][HP]
   // per buffer: the rows' bits, positions, lse and delta, [4][BQ]
   int* sRows = reinterpret_cast<int*>(sm + 2 * KT + 2 * NQB * QT);
-  int* sSum = sRows + NQB * 4 * BQ;        // [4 warps][8]
-  unsigned* sAct = reinterpret_cast<unsigned*>(sSum + 32);
+  int* sSum = sRows + NQB * 4 * BQ;        // [4 NWG warps][8]
+  unsigned* sAct = reinterpret_cast<unsigned*>(sSum + NWG * 32);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
+  // warp: the warp within its warpgroup wg, which owns dK's and dV's
+  // columns [wg HN, wg HN + HN); both warpgroups compute the same S^T,
+  // dP^T, P^T and dS^T
+  const int tid = threadIdx.x, wg = NWG == 1 ? 0 : tid / NT;
+  const int warp = (NWG == 1 ? tid : tid % NT) >> 5;
+  const int lane = tid & 31, g = lane >> 2, tig = lane & 3;
   const int kt = blockIdx.y, k0 = kt * MMA_BK;
   const int hk = blockIdx.x, b = blockIdx.z;
   const int n_rep = H / Hkv;
@@ -373,12 +415,12 @@ bam_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
       return e | (3 << 28);
     }
   };
-  for (int i = tid; i < 2 * n_words; i += NT) sAct[i] = 0u;
+  for (int i = tid; i < 2 * n_words; i += MT) sAct[i] = 0u;
   const KeysSummary ks = summarize_keys(kbits + (size_t)b * Tk,
                                         kpos + (size_t)b * Tk, k0, Tk, sSum,
                                         tid);
-  list_tiles(ks, n_ent, item_of, qb_row, qp_row, Tq, window, sAct, sList,
-             tid);
+  list_tiles<4 * NWG>(ks, n_ent, item_of, qb_row, qp_row, Tq, window, sAct,
+                      sList, tid);
   const int n_tiles = sList[0];
   const int* items = sList + 1;
   const int n_steps = n_rep * n_tiles;   // (query head, q tile), in order
@@ -389,18 +431,20 @@ bam_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int h = hk * n_rep + rep;
     const int q0 = (items[s - rep * n_tiles] & ITEM_TILE) * BQ;
     const size_t qoff = ((size_t)b * Tq * H + h) * HD;
-    cp_async_tile<BQ, HD, NT>(sQ + st * QT, q + qoff, q0, Tq, (size_t)H * HD,
+    cp_async_tile<BQ, HD, MT>(sQ + st * QT, q + qoff, q0, Tq, (size_t)H * HD,
                               tid);
-    cp_async_tile<BQ, HD, NT>(sDO + st * QT, dout + qoff, q0, Tq,
+    cp_async_tile<BQ, HD, MT>(sDO + st * QT, dout + qoff, q0, Tq,
                               (size_t)H * HD, tid);
-    const int t = q0 + lane;   // one value a thread, warp w its w-th row
-    const size_t row = ((size_t)b * H + h) * Tq + t;
-    const void* src = warp == 0   ? static_cast<const void*>(qb_row + t)
-                      : warp == 1 ? static_cast<const void*>(qp_row + t)
-                      : warp == 2 ? static_cast<const void*>(lse + row)
-                                  : static_cast<const void*>(delta + row);
-    cp_async_4(smem_u32(sRows + st * 4 * BQ + tid), t < Tq ? src : qb_row,
-               t < Tq ? 4 : 0);
+    if (NWG == 1 || tid < NT) {   // one value a thread, warp w its w-th row
+      const int t = q0 + lane;
+      const size_t row = ((size_t)b * H + h) * Tq + t;
+      const void* src = warp == 0   ? static_cast<const void*>(qb_row + t)
+                        : warp == 1 ? static_cast<const void*>(qp_row + t)
+                        : warp == 2 ? static_cast<const void*>(lse + row)
+                                    : static_cast<const void*>(delta + row);
+      cp_async_4(smem_u32(sRows + st * 4 * BQ + tid), t < Tq ? src : qb_row,
+                 t < Tq ? 4 : 0);
+    }
   };
   // wgmma descriptors: K and V as A; Q and dO as K-major B (S^T, dP^T)
   // and MN-major B (dS^T·Q, P^T·dO: next 64 hd values 32 rows x 128
@@ -473,13 +517,13 @@ bam_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t oa = (kk >> 2) * (MMA_BK * 128) + (kk & 3) * 32;
       const uint32_t ob = (kk >> 2) * (BQ * 128) + (kk & 3) * 32;
-      wgmma_m64n32k16_ss(sp, dKa + (oa >> 4), dq_k + (ob >> 4), kk > 0);
+      wgmma_m64n32k16_ss(sp, desc_add(dKa, oa >> 4), dq_k + (ob >> 4), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t oa = (kk >> 2) * (MMA_BK * 128) + (kk & 3) * 32;
       const uint32_t ob = (kk >> 2) * (BQ * 128) + (kk & 3) * 32;
-      wgmma_m64n32k16_ss(sd, dVa + (oa >> 4), ddo_k + (ob >> 4), kk > 0);
+      wgmma_m64n32k16_ss(sd, desc_add(dVa, oa >> 4), ddo_k + (ob >> 4), kk > 0);
     }
     wgmma_commit();
   };
@@ -535,19 +579,27 @@ bam_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
     __syncwarp();
     wgmma_fence();
     const int st = j % NQB;
-    const uint64_t ddo_n = sw128_desc(sDO + st * QT, BQ * 128, 1024);
-    const uint64_t dq_n = sw128_desc(sQ + st * QT, BQ * 128, 1024);
+    // this warpgroup's columns start HN / 64 column blocks into the tile
+    const uint32_t cols = st * QT + wg * (HN / 64) * (BQ * 128);
+    const uint64_t ddo_n = sw128_desc(sDO + cols, BQ * 128, 1024);
+    const uint64_t dq_n = sw128_desc(sQ + cols, BQ * 128, 1024);
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
       const uint32_t o = (kk * 16 * 128) >> 4;
-      wgmma_rs<HD>(adv, phi[kk], ddo_n + o);
-      wgmma_rs<HD>(adv, plo[kk], ddo_n + o);
-      wgmma_rs<HD>(adk, shi[kk], dq_n + o);
-      wgmma_rs<HD>(adk, slo[kk], dq_n + o);
+      wgmma_rs<HN>(adv, phi[kk], ddo_n + o);
+      wgmma_rs<HN>(adv, plo[kk], ddo_n + o);
+      wgmma_rs<HN>(adk, shi[kk], dq_n + o);
+      wgmma_rs<HN>(adk, slo[kk], dq_n + o);
     }
     wgmma_commit();
 
-    wgmma_wait<1>();   // S^T(j + 1), dP^T(j + 1) done; the products run on
+    // S^T(j + 1), dP^T(j + 1) done; the products run on beside the
+    // gradient's arithmetic, except at hd 256, where their A registers
+    // beside it would not fit: there they finish first
+    if constexpr (NWG == 1)
+      wgmma_wait<1>();
+    else
+      wgmma_wait<0>();
     fence_regs(np);
     fence_regs(nd);
     if (j + 1 < n_steps) grad_of(np, nd, j + 1, (j + 1) % NQB);
@@ -557,9 +609,9 @@ bam_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   };
 
   if (n_steps > 0) {
-    cp_async_tile<MMA_BK, HD, NT>(sK, k + ((size_t)b * Tk * Hkv + hk) * HD,
+    cp_async_tile<MMA_BK, HD, MT>(sK, k + ((size_t)b * Tk * Hkv + hk) * HD,
                                   k0, Tk, (size_t)Hkv * HD, tid);
-    cp_async_tile<MMA_BK, HD, NT>(sV, v + ((size_t)b * Tk * Hkv + hk) * HD,
+    cp_async_tile<MMA_BK, HD, MT>(sV, v + ((size_t)b * Tk * Hkv + hk) * HD,
                                   k0, Tk, (size_t)Hkv * HD, tid);
     load_q(0, 0);
     if (n_steps > 1) load_q(1, 1);
@@ -583,14 +635,16 @@ bam_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_wait_all();
 
-  // epilogue: adk[4 c + 2 i + u] is key tk_i, column 8 c + 2 tig + u
+  // epilogue: adk[4 c + 2 i + u] is key tk_i, column wg HN + 8 c + 2 tig
+  // + u; the columns past HD (hd 80's padding) are not stored
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int tk = i ? tk1 : tk0;
     if (tk >= Tk) continue;
-    const size_t off = ((size_t)(b * Tk + tk) * Hkv + hk) * HD + 2 * tig;
+    const size_t off =
+        ((size_t)(b * Tk + tk) * Hkv + hk) * HD + wg * HN + 2 * tig;
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
+    for (int c = 0; c < (HN < HD ? HN : HD) / 8; ++c) {
       *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * c) =
           __floats2bfloat162_rn(adk[4 * c + 2 * i] * scale,
                                 adk[4 * c + 2 * i + 1] * scale);
@@ -614,7 +668,7 @@ int launch_mma(const void* q, const void* k, const void* v,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Hkv, (Tk + MMA_BK - 1) / MMA_BK, B);
-  kern<<<grid, NT, smem, stream>>>(
+  kern<<<grid, NT * mma_wgs(HD), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, qb,
       kb, qp, kp, static_cast<T*>(dk), static_cast<T*>(dv), tile_ptr,
@@ -629,7 +683,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const int* tile_ptr, const int* tile_idx, int B, int Tq, int Tk,
              int H, int Hkv, float scale, float softcap, int window,
              cudaStream_t stream) {
-  if constexpr (!wgmma_body<T, HD>())
+  if constexpr (!wgmma_body<3, T, HD>())
     return launch<T, HD, COMPACT>(q, k, v, dout, lse, delta, qb, kb, qp, kp,
                                   dk, dv, tile_ptr, tile_idx, B, Tq, Tk, H,
                                   Hkv, scale, softcap, window, stream);
@@ -643,8 +697,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype: 0 = float32, 1 = bfloat16. q/dout [B,Tq,H,hd], k/v/dk/dv
 // [B,Tk,Hkv,hd], all contiguous; lse/delta f32 [B,H,Tq]; bits/pos int32
-// [B,T]; hd 64, 80, 128 or 256 (bf16 at 64 and 128 on the wgmma body, the
-// rest on the SIMT body; any other hd returns cudaErrorInvalidValue).
+// [B,T]; hd 64, 80, 128 or 256 (bf16 on the wgmma body, f32 on the SIMT
+// body; any other hd returns cudaErrorInvalidValue).
 // dK/dV come out folded over the H / Hkv query heads of each KV head.
 // With tile_ptr set, the compacted grid: int32 CSR rows (q blocks of 64
 // rows, ascending per row), for the SIMT body the map's k-major list

@@ -540,7 +540,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const int* tile_ptr, const int* tile_idx, int B, int Tq, int Tk,
              int H, int Hkv, float scale, float softcap, int window,
              cudaStream_t stream) {
-  if constexpr (!wgmma_body<T, HD>())
+  if constexpr (!wgmma_body<2, T, HD>())
     return launch<T, HD, COMPACT>(q, k, v, dout, lse, delta, qb, kb, qp, kp,
                                   dq, tile_ptr, tile_idx, B, Tq, Tk, H, Hkv,
                                   scale, softcap, window, stream);

@@ -12,10 +12,20 @@
 // byte at T = 2000, far above the H100's ~295, so it is bound by
 // operations, 989 TFLOP/s of bf16 tensor cores.
 //
-// bf16 at hd 64 and 128 (the wgmma body): one warpgroup of 128 threads
-// owns a 64-row q tile of one head, which is wgmma's M, and loops over
-// 32-key tiles with the online-softmax state (m, l) and the f32 output
-// tile in registers.
+// bf16 at hd 64, 80, 128 and 256 (the wgmma body): one warpgroup of 128
+// threads owns a 64-row q tile of one head, which is wgmma's M, and
+// loops over 32-key tiles with the online-softmax state (m, l) and the
+// f32 output tile in registers.
+//  - hd 80 runs on bam_mma.cuh's layout padded to 128: chunks 10-15 of
+//    each Q, K and V row are zeros written by cp.async with no global
+//    read, S takes 5 k16 steps (the zero tail adds nothing), P·V runs at
+//    N 128 (the hd 128 body's registers and shared memory) and only the
+//    80 real columns are stored.
+//  - hd 256: S is 16 k16 steps over four column blocks; P·V is one
+//    m64n256k16 per k16 step, so a thread holds 128 output values, the
+//    two S tiles (32) and the split P (16): ptxas fits them in one
+//    warpgroup at 224 registers, no spill. Q 32 KB and two buffers each
+//    of K and V (64 KB), ~97 KB a block: two blocks an SM.
 // Blocks run in parallel, so nothing is carried between them (the TPU
 // grid carried VMEM scratch across its sequential k axis). The grid runs
 // heads fastest and the last q tiles first: a causal mask gives those
@@ -69,13 +79,11 @@
 //    allowed is an exact no-op (alpha = 1, p = 0), so for a map that
 //    covers the mask K1c writes dense K1's bits.
 //
-// The SIMT body (float32, and bf16 at hd 80 and 256, where no wgmma body
-// is built yet) keeps the first design unchanged: f32 FMAs out of padded
-// shared memory, two threads per q row, a block-wide skip of a tile with
-// no allowed pair. bf16 is converted to f32 as it is loaded, and the
-// output is rounded once as it is stored, as the plain version does. At
-// hd 256 a thread keeps 128 output columns in registers and a block
-// takes 140,288 bytes of shared memory (one block an SM).
+// The SIMT body (float32 at every head size) keeps the first design
+// unchanged: f32 FMAs out of padded shared memory, two threads per q
+// row, a block-wide skip of a tile with no allowed pair. At hd 256 a
+// thread keeps 128 output columns in registers and a block takes
+// 140,288 bytes of shared memory (one block an SM).
 //
 // The compacted grid (COMPACT = true) replaces the Pallas kernel's
 // block_map path (the (q_blk, k_blk, first, last, active) scalar-prefetch
@@ -290,8 +298,9 @@ constexpr int NBUF = 2;   // buffers each of K (with its bits) and V
 
 template <int HD>
 size_t mma_smem(int Tk) {
+  constexpr int HP = padded_hd(HD);
   const int nk = (Tk + BK - 1) / BK;
-  return 1024 + BQ * HD * 2 + 2 * NBUF * BK * HD * 2 +
+  return 1024 + BQ * HP * 2 + 2 * NBUF * BK * HP * 2 +
          NBUF * 2 * BK * sizeof(int) + 32 * sizeof(int) +
          2 * ((nk + 31) / 32) * sizeof(unsigned) + (nk + 1) * sizeof(int);
 }
@@ -308,15 +317,16 @@ bam_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const int* __restrict__ tile_idx, int Tq, int Tk, int H,
                    int Hkv, float scale, float softcap, int window) {
   static_assert(std::is_same<T, __nv_bfloat16>::value, "bf16 only");
-  constexpr int QB = BQ * HD * 2;   // bytes of the Q tile
-  constexpr int KB = BK * HD * 2;   // bytes of one K (or V) tile
-  constexpr int NO = HD / 2;        // output values per thread
+  constexpr int HP = padded_hd(HD); // head size of the tile layout
+  constexpr int QB = BQ * HP * 2;   // bytes of the Q tile
+  constexpr int KB = BK * HP * 2;   // bytes of one K (or V) tile
+  constexpr int NO = HP / 2;        // output values per thread
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* sm =
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  const uint32_t sQ = smem_u32(sm);                 // [BQ][HD] swizzled
-  const uint32_t sK = sQ + QB;                      // NBUF x [BK][HD]
-  const uint32_t sV = sK + NBUF * KB;               // NBUF x [BK][HD]
+  const uint32_t sQ = smem_u32(sm);                 // [BQ][HP] swizzled
+  const uint32_t sK = sQ + QB;                      // NBUF x [BK][HP]
+  const uint32_t sV = sK + NBUF * KB;               // NBUF x [BK][HP]
   int* sBits = reinterpret_cast<int*>(sm + QB + 2 * NBUF * KB);
   int* sSum = sBits + NBUF * 2 * BK;                // [4 warps][8]
   unsigned* sAct = reinterpret_cast<unsigned*>(sSum + 32);
@@ -532,8 +542,8 @@ bam_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
       const uint64_t dv = dV[P] + ((kk * 16 * 128) >> 4);
-      wgmma_rs<HD>(o, ahi[kk], dv);
-      wgmma_rs<HD>(o, alo[kk], dv);
+      wgmma_rs<HP>(o, ahi[kk], dv);
+      wgmma_rs<HP>(o, alo[kk], dv);
     }
     wgmma_commit();
 
@@ -568,7 +578,8 @@ bam_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   cp_async_wait_all();
 
-  // 4. epilogue: o[4 c + 2 i + u] is row tq_i, column 8 c + 2 tig + u
+  // 4. epilogue: o[4 c + 2 i + u] is row tq_i, column 8 c + 2 tig + u;
+  // the columns past HD (hd 80's padding) are not stored
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int tq = i ? tq1 : tq0;
@@ -627,7 +638,7 @@ int dispatch(const void* q, const void* k, const void* v, const int* qb,
              float scale, float softcap, int window, cudaStream_t stream) {
 #define BAM_FWD_LAUNCH(STATS, COMPACT)                                       \
   {                                                                          \
-    if constexpr (!wgmma_body<T, HD>())                                      \
+    if constexpr (!wgmma_body<1, T, HD>())                                   \
       return launch<T, HD, STATS, COMPACT>(q, k, v, qb, kb, qp, kp, out,     \
                                            lse, lsum, tile_ptr, tile_idx, B, \
                                            Tq, Tk, H, Hkv, scale, softcap,   \
@@ -648,8 +659,8 @@ int dispatch(const void* q, const void* k, const void* v, const int* qb,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd 64, 80, 128 or 256 (bf16 at 64 and
-// 128 on the wgmma body, the rest on the SIMT body; any other hd returns
+// dtype: 0 = float32, 1 = bfloat16; hd 64, 80, 128 or 256 (bf16 on the
+// wgmma body, f32 on the SIMT body; any other hd returns
 // cudaErrorInvalidValue). q [B,Tq,H,hd], k/v [B,Tk,Hkv,hd],
 // all contiguous; bits/pos int32 [B,T]. With lsum null ("out" and
 // "residual"): out [B,Tq,H,hd] in q's type, lse f32 [B,H,Tq] or null.

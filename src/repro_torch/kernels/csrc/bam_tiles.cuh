@@ -146,7 +146,8 @@ struct KeysSummary {
 };
 
 // KeysSummary of keys t0 .. t0 + 64 of (bits, pos) [T], keys at or past
-// T counting as padding, by 128 threads; sSum: [4 warps][8] ints. Ends
+// T counting as padding, by 128 threads or more (warps 0 and 1 hold one
+// key per lane; the others add nothing); sSum: [warps][8] ints. Ends
 // with a barrier.
 __device__ __forceinline__ KeysSummary summarize_keys(const int* bits,
                                                       const int* pos,
@@ -236,15 +237,15 @@ __device__ __forceinline__ void fragment_mask_t(bool (&ok)[16],
   }
 }
 
-// The tiles to compute, ascending, by 128 threads: entry e in [0, n_ent)
-// is the list item item_of(e), naming the 32-row tile item & ITEM_TILE
-// of (bits, pos) [T] (rows at or past T are padding). Warp w tests
-// entries w, w + 4, ..., one row per lane, sixteen entries' loads in
-// flight: the entry is kept where test.maybe holds for some row, and
+// The tiles to compute, ascending, by the block's NW warps: entry e in
+// [0, n_ent) is the list item item_of(e), naming the 32-row tile item &
+// ITEM_TILE of (bits, pos) [T] (rows at or past T are padding). Warp w
+// tests entries w, w + NW, ..., one row per lane, sixteen entries' loads
+// in flight: the entry is kept where test.maybe holds for some row, and
 // marked full (bit 31) where test.every holds for all. Writes sList[0]
 // = count, then the kept items; sAct holds 2 * ceil(n_ent / 32) words,
 // zeroed by the caller before a barrier. Ends with a barrier.
-template <class Test, class ItemOf>
+template <int NW = 4, class Test, class ItemOf>
 __device__ __forceinline__ void list_tiles(const Test& test, int n_ent,
                                            ItemOf item_of, const int* bits,
                                            const int* pos, int T, int window,
@@ -254,19 +255,19 @@ __device__ __forceinline__ void list_tiles(const Test& test, int n_ent,
   const int n_words = (n_ent + 31) / 32;
   unsigned* sFull = sAct + n_words;
   constexpr int SCAN = 16;
-  for (int e0 = warp; e0 < n_ent; e0 += SCAN * 4) {
+  for (int e0 = warp; e0 < n_ent; e0 += SCAN * NW) {
     unsigned bv[SCAN];
     int pv[SCAN];
 #pragma unroll
     for (int u = 0; u < SCAN; ++u) {
-      const int e = e0 + u * 4;
+      const int e = e0 + u * NW;
       const int t = e < n_ent ? (item_of(e) & ITEM_TILE) * 32 + lane : T;
       bv[u] = t < T ? (unsigned)bits[t] : 0u;
       pv[u] = t < T ? pos[t] : 0;
     }
 #pragma unroll
     for (int u = 0; u < SCAN; ++u) {
-      const int e = e0 + u * 4;
+      const int e = e0 + u * NW;
       const bool any = __any_sync(0xffffffffu, test.maybe(bv[u], pv[u],
                                                           window));
       const bool all = __all_sync(0xffffffffu, test.every(bv[u], pv[u],

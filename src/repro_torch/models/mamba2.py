@@ -20,8 +20,9 @@ application) is applied. Decode keeps one KV strip per shared-block
 application plus per-layer SSM and conv states.
 
 The shared block is ``transformer._block``; on the BAM kernel path
-(``attn_impl="bam_kernel"``) zamba2's ``head_dim`` 80 runs K1, K2 and
-K3 on their SIMT bodies (``kernels.bam_attention.kernel_body``).
+(``attn_impl="bam_kernel"``) zamba2's ``head_dim`` 80 runs K1 and K3
+on their wgmma bodies in bf16 (padded to 128 in shared memory) and K2 on
+its SIMT body (``kernels.bam_attention.kernel_body``).
 """
 from __future__ import annotations
 

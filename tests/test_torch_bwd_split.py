@@ -33,11 +33,22 @@ once.
 So the kernels split all three: K2 issues 4 products per 32-key tile (S,
 dP, dS_hi·K, dS_lo·K), K3 6 per 32-row q tile.
 
+K3 runs its wgmma body also at hd 80 (on the layout padded to 128) and
+256 (two warpgroups, each summing every column of its half in one
+warpgroup's order), K2 its SIMT body there; over the 4 layouts:
+
+| Product | hd | split hi/lo | rounded once |
+| --- | --- | --- | --- |
+| P^T·dO (dV) | 80 | 0.070 | 12.6 to 34.2 |
+| dS^T·Q (dK) | 80 | 0.039 | 10.1 to 24.1 |
+| P^T·dO (dV) | 256 | 0.043 | 9.2 to 29.8 |
+| dS^T·Q (dK) | 256 | 0.048 | 12.9 to 36.8 |
+
 Sizes: T 512 causal; vlm-like multimodal (32 text tokens, a 192-token
 image block, text); the allgather share of rank 0 in a 4-rank LPT plan of
 ``random_multimodal_bits(512, "ee", seed=0)`` (q 128 rows against all
 512 keys); causal with softcap 30 and window 100. 4 query and 2 KV heads
-of 64 and 128; inputs from a numpy seed.
+of 64 and 128 (and 80 and 256 for K3); inputs from a numpy seed.
 """
 import sys
 from pathlib import Path
@@ -72,11 +83,10 @@ def _product(a, b, eq: str, split: bool):
     return out
 
 
-def _p_ds(qf, kf, vf, dof, lse, delta, allowed, softcap):
+def _p_ds(qf, kf, vf, dof, lse, delta, allowed, softcap, scale):
     """P and dS in f32 on one tile, from f32 S and dP of bf16 values;
     masked pairs selected to 0."""
-    hd = qf.shape[-1]
-    x = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * hd ** -0.5
+    x = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
     chain = 1.0
     if softcap:
         x = torch.tanh(x / softcap) * softcap
@@ -104,7 +114,7 @@ def k2_emulated(q, k, v, do, lse, delta, qb, kb, qp, kp, *, softcap=0.0,
     for k0 in range(0, k.shape[1], BLOCK_K):
         ks = slice(k0, k0 + BLOCK_K)
         _, ds = _p_ds(qf, kf[:, ks], vf[:, ks], dof, lse, delta,
-                      mask[..., ks], softcap)
+                      mask[..., ks], softcap, hd ** -0.5)
         dq += _product(ds, kf[:, ks], "bhqk,bkhd->bhqd", split)
     return (dq * hd ** -0.5).permute(0, 2, 1, 3)
 
@@ -114,22 +124,36 @@ def k3_emulated(q, k, v, do, lse, delta, qb, kb, qp, kp, *, softcap=0.0,
     """K3's bf16 arithmetic, unrounded: per BLOCK_Q3-row q tile, P and dS
     in f32, dV += P^T·dO and dK += dS^T·Q with each operand split or
     rounded once, then the query heads of each KV head summed in f32.
-    f32 (dK, dV) [B,Tk,Hkv,hd]."""
+    hd 80 runs on the kernel's layout padded to 128 (zero columns of Q,
+    K, V and dO; the scale stays 80^-0.5; dK and dV keep the first 80
+    columns). At 256 the kernel's two warpgroups each compute S^T and
+    dP^T whole and own 128 columns of dK and dV: every column's sums run
+    in this order. f32 (dK, dV) [B,Tk,Hkv,hd]."""
     qf, kf, vf, dof, mask = _expanded(q, k, v, do, qb, kb, qp, kp, window)
     B, Tq, _, hd = q.shape
-    Tk, Hkv = k.shape[1], k.shape[2]
-    dk = torch.zeros((B, H, Tk, hd))
-    dv = torch.zeros((B, H, Tk, hd))
+    qf, kf, vf, dof = (padded(x) for x in (qf, kf, vf, dof))
+    Tk, Hkv, hp = k.shape[1], k.shape[2], qf.shape[-1]
+    dk = torch.zeros((B, H, Tk, hp))
+    dv = torch.zeros((B, H, Tk, hp))
     for q0 in range(0, Tq, BLOCK_Q3):
         qs = slice(q0, q0 + BLOCK_Q3)
         p, ds = _p_ds(qf[:, qs], kf, vf, dof[:, qs], lse[..., qs],
-                      delta[..., qs], mask[:, :, qs], softcap)
+                      delta[..., qs], mask[:, :, qs], softcap, hd ** -0.5)
         dv += _product(p, dof[:, qs], "bhqk,bqhd->bhkd", split_p)
         dk += _product(ds, qf[:, qs], "bhqk,bqhd->bhkd", split_ds)
 
     def fold(x):
+        x = x[..., :hd]
         return x.reshape(B, Hkv, H // Hkv, Tk, hd).sum(2).permute(0, 2, 1, 3)
     return fold(dk) * hd ** -0.5, fold(dv)
+
+
+def padded(x):
+    """x [..., hd] with hd 80 zero-padded to 128 columns (the kernels'
+    shared-memory layout, ``csrc/bam_mma.cuh``); other sizes as they
+    are."""
+    hd = x.shape[-1]
+    return torch.nn.functional.pad(x, (0, 128 - hd)) if hd == 80 else x
 
 
 def _layout(name: str):
@@ -219,6 +243,26 @@ def test_split_keeps_one_bf16_ulp(layout, product, hd):
 @pytest.mark.parametrize("product", PRODUCTS)
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_rounded_once_breaks_the_check(layout, product, hd):
+    ratio = _worst(layout, hd, product, split=False)
+    assert ratio > SINGLE_MIN, ratio
+
+
+# K3 alone at 80 and 256: K2 runs its SIMT body (f32 FMAs) there
+K3_PRODUCTS = ("P^T·dO", "dS^T·Q")
+
+
+@pytest.mark.parametrize("hd", [80, 256])
+@pytest.mark.parametrize("product", K3_PRODUCTS)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_k3_split_keeps_one_bf16_ulp(layout, product, hd):
+    ratio = _worst(layout, hd, product, split=True)
+    assert ratio <= SPLIT_MAX, ratio
+
+
+@pytest.mark.parametrize("hd", [80, 256])
+@pytest.mark.parametrize("product", K3_PRODUCTS)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_k3_rounded_once_breaks_the_check(layout, product, hd):
     ratio = _worst(layout, hd, product, split=False)
     assert ratio > SINGLE_MIN, ratio
 

@@ -1,8 +1,10 @@
 """Head sizes 80 and 256 in K1-K3 and 256 in K4, on the CPU, against the
 JAX package on the same numpy inputs (f32, TF32 off).
 
-On the card these head sizes run the kernels' SIMT bodies, which
-``chip_smoke.py`` holds against the plain versions tested here:
+On the card these head sizes run K1 and K3 on their wgmma bodies in
+bf16 (hd 80 padded to 128 in shared memory) and K2, and f32, on the
+SIMT bodies, which ``chip_smoke.py`` holds against the plain versions
+tested here:
 
 - the plain K1 (``residual`` and ``stats``) at hd 80 and 256 against the
   Pallas kernel in interpret mode;
@@ -194,18 +196,22 @@ def test_k4_plain_matches_jax_kernel_at_256(softcap, window):
 # ---------------------------------------------------------------------------
 
 def test_head_size_rule():
-    """K1-K3 take 64, 80, 128 and 256 (bf16 at 64 and 128 on the wgmma
-    bodies, everything else on the SIMT bodies); K4 takes 64, 128 and
-    256, with smaller caps at 256; 96 is refused by both rules."""
+    """K1-K3 take 64, 80, 128 and 256: bf16 runs K1 and K3 on their wgmma
+    bodies at every size and K2 on its wgmma body at 64 and 128 and its
+    SIMT body at 80 and 256; f32 runs every kernel on its SIMT body. K4
+    takes 64, 128 and 256, with smaller caps at 256; 96 is refused by both
+    rules."""
     assert HEAD_DIMS == (64, 80, 128, 256)
-    for hd in (64, 128):
-        assert kernel_body(hd, torch.bfloat16) == "wgmma"
-        assert kernel_body(hd, torch.float32) == "simt"
-    for hd in (80, 256):
-        for dt in (torch.bfloat16, torch.float32):
-            assert kernel_body(hd, dt) == "simt"
-    with pytest.raises(ValueError, match="head_dim 96"):
-        kernel_body(96, torch.bfloat16)
+    for hd in HEAD_DIMS:
+        for kernel in ("K1", "K2", "K3"):
+            assert kernel_body(hd, torch.float32, kernel) == "simt"
+        assert kernel_body(hd, torch.bfloat16, "K1") == "wgmma"
+        assert kernel_body(hd, torch.bfloat16, "K3") == "wgmma"
+        assert kernel_body(hd, torch.bfloat16, "K2") == (
+            "wgmma" if hd in (64, 128) else "simt")
+    for kernel in ("K1", "K2", "K3"):
+        with pytest.raises(ValueError, match="head_dim 96"):
+            kernel_body(96, torch.bfloat16, kernel)
     assert k4_caps(64) == k4_caps(128) == (64, 32)
     assert k4_caps(256) == (32, 16)
     for hd in (80, 96):

@@ -20,8 +20,8 @@ Sizes: T 512 causal and vlm-like multimodal (32 text tokens, a
 192-token image block, text), and the allgather share of a 4-rank LPT
 plan of
 ``random_multimodal_bits(512, "ee", seed=0)`` (q 128 rows against all
-512 keys, stats mode); 4 query and 2 KV heads of 64 and 128; inputs
-from a numpy seed.
+512 keys, stats mode); 4 query and 2 KV heads of 64, 80 (on the layout
+padded to 128), 128 and 256; inputs from a numpy seed.
 """
 import sys
 from pathlib import Path
@@ -49,22 +49,24 @@ def k1_emulated(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *, split: bool,
     """K1's bf16 arithmetic, unrounded: per BLOCK_K-key tile, S in f32
     from bf16 q and k, the running (m, l) and the rescale of the f32
     accumulator, masked pairs selected to p = 0, and P times bf16 V in
-    f32 as P_hi·V + P_lo·V (``split``) or bf16(P)·V. Returns f32 (out
-    [B,Tq,H,hd], lse) or (acc [B,H,Tq,hd], m, l)."""
+    f32 as P_hi·V + P_lo·V (``split``) or bf16(P)·V. hd 80 runs on the
+    kernel's layout padded to 128 (zero columns 80-127 of Q, K and V; the
+    scale stays 80^-0.5), and the output keeps the first 80 columns.
+    Returns f32 (out [B,Tq,H,hd], lse) or (acc [B,H,Tq,hd], m, l)."""
     hd = q.shape[-1]
+    scale = hd ** -0.5
     n_rep = q.shape[2] // k.shape[2]
-    qf = q.float()
-    kf = bam.repeat_kv(k, n_rep).float()
-    vf = bam.repeat_kv(v, n_rep).float()
+    qf, kf, vf = (padded(x.float()) for x in (
+        q, bam.repeat_kv(k, n_rep), bam.repeat_kv(v, n_rep)))
     mask = bam.allowed_mask(q_bits, kv_bits, q_pos, kv_pos)[:, None]
     B, Tq = q.shape[:2]
     m = torch.full((B, H, Tq), NEG_INF)
     l = torch.zeros((B, H, Tq))
-    acc = torch.zeros((B, H, Tq, hd))
+    acc = torch.zeros((B, H, Tq, qf.shape[-1]))
     for k0 in range(0, k.shape[1], BLOCK_K):
         ks = slice(k0, k0 + BLOCK_K)
         allowed = mask[..., ks]
-        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, ks]) * hd ** -0.5
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, ks]) * scale
         s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
         m_new = torch.maximum(m, s.amax(-1))
         alpha = torch.exp(m - m_new)
@@ -78,6 +80,7 @@ def k1_emulated(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *, split: bool,
             pv = pv + torch.einsum("bhqk,bkhd->bhqd", lo, vf[:, ks])
         acc = acc * alpha[..., None] + pv
         m = m_new
+    acc = acc[..., :hd]
     if return_mode == "stats":
         return acc, m, l
     out = torch.where(l[..., None] > 0, acc / l.clamp_min(1e-30)[..., None],
@@ -85,6 +88,14 @@ def k1_emulated(q, k, v, q_bits, kv_bits, q_pos, kv_pos, *, split: bool,
     lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)),
                       torch.full_like(l, NEG_INF))
     return out if return_mode == "out" else (out, lse)
+
+
+def padded(x):
+    """x [..., hd] with hd 80 zero-padded to 128 columns (the kernels'
+    shared-memory layout, ``csrc/bam_mma.cuh``); other sizes as they
+    are."""
+    hd = x.shape[-1]
+    return torch.nn.functional.pad(x, (0, 128 - hd)) if hd == 80 else x
 
 
 def _layout(name: str):
@@ -116,6 +127,7 @@ def _inputs(layout: str, hd: int):
     return q, k, v, qb, kb, qp, kp
 
 
+HDS = [64, 128, 80, 256]   # every head size on K1's bf16 wgmma body
 CASES = [("causal", "out"), ("causal", "residual"),
          ("multimodal", "out"), ("multimodal", "residual"),
          ("cp", "stats")]
@@ -138,7 +150,7 @@ def _worst(layout: str, mode: str, hd: int, split: bool):
     return compare(got[0], plain[0], "bfloat16")[1], err_lse
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", HDS)
 @pytest.mark.parametrize("layout,mode", CASES)
 def test_split_p_keeps_one_bf16_ulp(layout, mode, hd):
     ratio, err_lse = _worst(layout, mode, hd, split=True)
@@ -146,7 +158,7 @@ def test_split_p_keeps_one_bf16_ulp(layout, mode, hd):
     assert err_lse <= 1e-5, err_lse
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", HDS)
 @pytest.mark.parametrize("layout,mode", CASES)
 def test_p_rounded_once_breaks_the_check(layout, mode, hd):
     ratio, _ = _worst(layout, mode, hd, split=False)
