@@ -24,13 +24,12 @@ line is printed only when every phase ran and passed):
    of the built ``bam_fwd``, ``bam_bwd_dq`` and ``bam_bwd_dkv``
    libraries, ``HGMMA`` instructions counted per kernel instantiation
    and printed beside ptxas' registers and spills; a check per library
-   fails unless each of its wgmma-body instantiations (bf16 at hd 64
-   and 128 for K2, 64, 80, 128 and 256 for K1 and K3,
-   ``*_mma_kernel``: 16 of K1, 4 of K2, 8 of K3) has HGMMA and no spill,
-   another unless K2's 4 bf16 SIMT-body instantiations (hd 80 and 256)
-   are there without HGMMA (their spills printed; K1 and K3 have none),
-   and another
-   unless none of K4's 6 instantiations (hd 64, 128, 256) spills.
+   fails unless each of its wgmma-body instantiations (bf16 at hd 64,
+   80, 128 and 256, ``*_mma_kernel``: 16 of K1, 8 of K2, 8 of K3) has
+   HGMMA and no spill, another unless it has no bf16 SIMT-body
+   instantiation (bf16 K1-K3 run on the tensor cores at every head
+   size), and another unless none of K4's 6 instantiations (hd 64, 128,
+   256) spills.
 2. Hold each kernel against its plain PyTorch version on the card at its
    main path's shapes, printing max abs error beside its tolerance,
    kernel/plain/library ms and the roofline bound:
@@ -68,16 +67,16 @@ line is printed only when every phase ran and passed):
      against one 1024-key ring chunk with rows that see no key there
      (exactly m = -1e30, l = 0, acc = 0); the four chunks' stats combined
      against one K1 residual call; K2 and K3 at Tq 1024, Tk 4096.
-2c. (part of ``kernels``) head sizes 80 and 256, K1 and K3 on their
-   wgmma bodies in bf16 (80 padded to 128), K2 and f32 on the SIMT ones:
+2c. (part of ``kernels``) head sizes 80 and 256, K1, K2 and K3 on their
+   wgmma bodies in bf16 (80 padded to 128), f32 on the SIMT ones:
    K1 (out, residual, stats), K1c (three modes), K2, K2c, K3 and K3c at
    gemma2-9b's heads (q [1,2048,16,256], k/v 8 heads, softcap 50, window
    4096) and zamba2-2.7b's (q [1,2048,32,80], k/v 32 heads), bf16 and
    f32, on ``lm_batch``'s bits (512 text, 1024 modality-1, 512 text):
    each within ``compare`` (``compare_stats``) of its plain version, the
    compacted grid torch.equal to the dense one, K3 bit-identical on a
-   second run, ``kernel_body`` per kernel ("wgmma" for bf16 K1 and K3,
-   "simt" for K2 and f32); kernel, plain, SDPA and bound ms
+   second run, ``kernel_body`` per kernel ("wgmma" in bf16, "simt" in
+   f32); kernel, plain, SDPA and bound ms
    of each in both dtypes (K4 at 256 is one of phase 2's K4 cases). On
    CUDA tensors K1-K3 refuse head_dim 96 and K4 96, 80, and at
    256 more than 16 heads per KV head and 64-slot pages.
@@ -170,7 +169,11 @@ line is printed only when every phase ran and passed):
    512 tokens against the block stepped token by token; one f32 AdamW
    step at depth 12 (two shared-block calls) on the kernel path (K1, K2
    and K3 at 80) and on the plain path from the same weights, loss,
-   grad_norm and parameters within ``DENSE_F32_REL``.
+   grad_norm and parameters within ``DENSE_F32_REL``; one bf16 AdamW step
+   at depth 12 on the kernel path (K1-K3 on their wgmma bodies at 80)
+   from the same draws, counts zeroed just before and read just after
+   (K1 2 x 2 under remat, K2 2, K3 2), loss and grad_norm finite, the
+   loss within ``HYB_BF16_REL`` of the f32 step's.
 4g. ``gemma2``: gemma2-9b (``configs/gemma2_9b.py``, head_dim 256) at
    full width and depth in bf16 (9.24 B parameters): (a) 4 text requests
    of 256-1024 tokens served through ``ServingEngine(attn="kernel")``
@@ -439,10 +442,10 @@ def ptxas_by_function(report: str):
 
 # the libraries whose bf16 instantiations run on the tensor cores (the
 # wgmma bodies, "_mma_kernel"): (kernel, wgmma-body instantiations, bf16
-# SIMT-body instantiations). K1 (stats x compact x hd 64, 80, 128, 256)
-# and K3 (compact x the four hds) run every bf16 size on wgmma; K2
-# (compact x hd 64, 128) keeps bf16 at 80 and 256 on its SIMT body
-SASS_LIBS = {"bam_fwd": ("K1", 16, 0), "bam_bwd_dq": ("K2", 4, 4),
+# SIMT-body instantiations). K1 (stats x compact x hd 64, 80, 128, 256),
+# K2 and K3 (compact x the four hds) run every bf16 size on wgmma, so no
+# bf16 SIMT body may be built
+SASS_LIBS = {"bam_fwd": ("K1", 16, 0), "bam_bwd_dq": ("K2", 8, 0),
              "bam_bwd_dkv": ("K3", 8, 0)}
 
 
@@ -462,10 +465,9 @@ def sass_check(smoke: Smoke, _build) -> None:
     """HGMMA instructions per kernel instantiation of the built bam_fwd,
     bam_bwd_dq and bam_bwd_dkv libraries (cuobjdump --dump-sass), printed
     beside ptxas' registers and spills. Every wgmma-body instantiation of
-    K1 (16: hd 64, 80, 128, 256), K2 (4: 64, 128) and K3 (8: the four
-    hds) must hold HGMMA and spill nothing; K2's 4 bf16 SIMT-body
-    instantiations (hd 80 and 256) must be there and hold no HGMMA (their
-    spills are printed, not checked), and K1 and K3 have none."""
+    K1 (16: hd 64, 80, 128, 256), K2 and K3 (8 each: the four hds) must
+    hold HGMMA and spill nothing, and none of the three libraries may
+    hold a bf16 SIMT-body instantiation."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     for lib, (key, want, want_simt) in SASS_LIBS.items():
         try:
@@ -1357,8 +1359,8 @@ COMPACT_T, COMPACT_LAYOUTS = 4096, ("ep", "ee", "mp")
 
 
 # ---------------------------------------------------------------------------
-# Phase 2c: head sizes 80 and 256 (K1 and K3 on wgmma in bf16, K2 on
-# its SIMT body; K4 at 256)
+# Phase 2c: head sizes 80 and 256 (K1, K2 and K3 on wgmma in bf16; K4
+# at 256)
 # ---------------------------------------------------------------------------
 
 HD_T = 2048
@@ -1375,8 +1377,7 @@ def head_dim_cases(smoke: Smoke):
     plain version, the compacted grid (a map built at the kernels' tile
     for the case's window) torch.equal to the dense one, K3 bit-identical
     on a second run, ``kernel_body`` naming the body that serves each
-    call: in bf16 "wgmma" for K1 and K3 and "simt" for K2, in f32
-    "simt".
+    call: "wgmma" in bf16, "simt" in f32.
     Times of every kernel (kernel, plain, SDPA or its backward, bound) in
     both dtypes. Then the refusals (``head_dim_refusals``); K4 at 256 is
     one of ``k4_cases``."""
@@ -1400,7 +1401,7 @@ def head_dim_cases(smoke: Smoke):
             bodies = {kk: kernel_body(hd, dtype, kk)
                       for kk in ("K1", "K2", "K3")}
             tc = "wgmma" if dt == "bfloat16" else "simt"
-            want = {"K1": tc, "K2": "simt", "K3": tc}
+            want = {"K1": tc, "K2": tc, "K3": tc}
             q, do = (torch.randn((1, HD_T, H, hd), generator=gen,
                                  device="cuda").to(dtype) for _ in range(2))
             k, v = (torch.randn((1, HD_T, Hkv, hd), generator=gen,
@@ -2902,6 +2903,7 @@ def qwen_moe_prefill(smoke: Smoke):
 
 HYB_SSD_T = 512               # 4 chunks of 128
 HYB_TRAIN_LAYERS = 12         # two shared-block calls
+HYB_BF16_REL = 2e-2           # the bf16 step's loss, relative to f32's
 
 
 def hybrid_phase(smoke: Smoke):
@@ -2912,7 +2914,8 @@ def hybrid_phase(smoke: Smoke):
     against an f32 forward of the same weights; the strip-cache serve
     loop and the chunked SSD against the recurrence in f32 (no kernel);
     one f32 AdamW step at depth ``HYB_TRAIN_LAYERS`` through K1-K3 at 80
-    against the plain step."""
+    against the plain step, and one bf16 step from the same draws through
+    K1-K3's wgmma bodies."""
     torch = smoke.torch
     from repro_torch.kernels.bam_attention import kernel_body
     from repro_torch.models import api
@@ -2979,9 +2982,65 @@ def hybrid_phase(smoke: Smoke):
                 f"SSD check ({counts})")
     c12 = cfg.replace(num_layers=HYB_TRAIN_LAYERS, dtype="float32")
     n12 = c12.num_layers // c12.attn_layer_period
+    want = {"K1": (2 if c12.remat else 1) * n12, "K2": n12, "K3": n12}
     smoke.hybrid["train_parity_f32"] = train_parity(
-        smoke, c12, lm_batch, SEED + 15,
-        {"K1": (2 if c12.remat else 1) * n12, "K2": n12, "K3": n12})
+        smoke, c12, lm_batch, SEED + 15, want)
+    smoke.hybrid["train_bf16"] = bf16_train_step(
+        smoke, c12, lm_batch, SEED + 15, want,
+        smoke.hybrid["train_parity_f32"]["loss"])
+    smoke.launches["hybrid_train_bf16"] = smoke.hybrid["train_bf16"][
+        "launches"]
+
+
+def bf16_train_step(smoke: Smoke, c32, make_batch, seed: int, want,
+                    f32_loss: float) -> dict:
+    """One bf16 AdamW ``make_train_step`` on the kernel path from the
+    draws ``train_parity`` makes at ``seed`` (the same weights, cast to
+    bf16 as the init casts them, and the same batch): launches counted
+    (``want``, each kernel on its wgmma body), loss and grad_norm finite,
+    the loss within ``HYB_BF16_REL`` of the f32 step's ``f32_loss``."""
+    torch = smoke.torch
+    from repro_torch.kernels.bam_attention import kernel_body
+    from repro_torch.models import api
+    from repro_torch.optim import optimizer as opt
+    from repro_torch.training import steps
+
+    cfg = c32.replace(dtype="bfloat16", attn_impl="bam_kernel")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = api.init(cfg, device="cuda", generator=gen)
+    model.requires_grad_(True)
+    batch = make_batch(torch, cfg, gen)
+    ocfg = opt.AdamWConfig(lr=1e-4, warmup_steps=1, total_steps=10,
+                           eps=1e-3)
+    state = opt.init(ocfg, dict(model.named_parameters()))
+    step = steps.make_train_step(cfg, ocfg)
+    zero_counts()
+    t0 = time.perf_counter()
+    model, state, met = step(model, state, batch)
+    torch.cuda.synchronize()
+    took = (time.perf_counter() - t0) * 1e3
+    counts = kernel_counts()
+    got = {k: counts[k] for k in want}
+    others = {k: n for k, n in counts.items() if n and k not in want}
+    loss, gn = float(met["loss"]), float(met["grad_norm"])
+    rel = abs(loss - f32_loss) / abs(f32_loss)
+    bodies = {k: kernel_body(cfg.head_dim, torch.bfloat16, k) for k in want}
+    smoke.check(got == want and not others
+                and bool(np.isfinite([loss, gn]).all())
+                and rel <= HYB_BF16_REL
+                and set(bodies.values()) == {"wgmma"},
+                f"bf16 {cfg.name} depth {cfg.num_layers}, full width, one "
+                f"AdamW step on the kernel path: loss {loss:.6f} against "
+                f"f32's {f32_loss:.6f} (rel {rel:.2e}, tol {HYB_BF16_REL}), "
+                f"grad_norm {gn:.6f}; launches {got} (want {want}), others "
+                f"{others or 0}; bodies {bodies} (head_dim "
+                f"{cfg.head_dim}); {took:.0f} ms (first call) "
+                f"[{smoke.smi}]")
+    del model, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "grad_norm": gn, "loss_rel_f32": rel,
+            "launches": got, "ms": took}
 
 
 def train_parity(smoke: Smoke, c32, make_batch, seed: int, want) -> dict:
@@ -3039,8 +3098,9 @@ def train_parity(smoke: Smoke, c32, make_batch, seed: int, want) -> dict:
                 f"{rg:.2e}), parameters max |d| / max |p| {rp:.2e} (tol "
                 f"{DENSE_F32_REL}); launches {got} (want {want}), others "
                 f"{oth or 0}, plain path {plain}; {mk:.0f} vs {mx:.0f} ms")
-    return {"loss_rel": rl, "grad_norm_rel": rg, "params_rel": rp,
-            "launches": got, "ms": mk, "plain_ms": mx}
+    return {"loss": lk, "grad_norm": gk, "loss_rel": rl,
+            "grad_norm_rel": rg, "params_rel": rp, "launches": got,
+            "ms": mk, "plain_ms": mx}
 
 
 def hybrid_ssd_check(smoke: Smoke, cfg):

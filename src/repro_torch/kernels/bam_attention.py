@@ -23,11 +23,10 @@ of each pair of k-major rows). Pairs outside the map's tiles count as
 masked, so the plain versions AND the mask with ``core.bam.tile_mask``.
 
 Head sizes (``kernel_body``): the kernels take ``HEAD_DIMS`` = 64, 80,
-128 and 256. bf16 runs the wgmma bodies (Hopper's tensor cores) at
-``WGMMA_HEAD_DIMS[kernel]``: every size for K1 and K3 (80 padded to 128
-in shared memory), 64 and 128 for K2; f32 at every size, and K2 in bf16
-at 80 and 256, run the SIMT bodies (f32 FMAs out of padded shared
-memory). Any other head size raises ``ValueError`` on a CUDA tensor.
+128 and 256. bf16 runs the wgmma bodies (Hopper's tensor cores) at every
+one of them (80 padded to 128 in shared memory); f32 runs the SIMT
+bodies (f32 FMAs out of padded shared memory). Any other head size
+raises ``ValueError`` on a CUDA tensor.
 
 The [T, T] mask is never materialised by a kernel: each tile of it is
 evaluated from the int32 bitfield and position vectors. A CPU tensor
@@ -51,8 +50,6 @@ from repro_torch.kernels.ref import (NEG_INF, masked_attention,  # noqa: F401
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 80, 128, 256)      # what K1, K2 and K3 take
-# bf16 on the tensor cores, by kernel
-WGMMA_HEAD_DIMS = {"K1": HEAD_DIMS, "K2": (64, 128), "K3": HEAD_DIMS}
 RETURN_MODES = ("out", "residual", "stats")
 # the kernels' tile (csrc/*.cu: BQ x BK), which a block map must share
 BLOCK_Q, BLOCK_K = 64, 32
@@ -79,13 +76,14 @@ def check_block_map(block_map, Tq: int, Tk: int, window: int) -> None:
 
 def kernel_body(hd: int, dtype, kernel: str) -> str:
     """The body of ``kernel`` ("K1", "K2" or "K3") that a CUDA call at
-    head size ``hd`` in ``dtype`` runs: ``"wgmma"`` (bf16 at
-    ``WGMMA_HEAD_DIMS[kernel]``) or ``"simt"``. Raises ``ValueError`` for
-    a head size the kernels do not take."""
+    head size ``hd`` in ``dtype`` runs: ``"wgmma"`` (bf16; the same rule
+    for all three) or ``"simt"`` (f32). Raises ``ValueError`` for another
+    kernel or a head size the kernels do not take."""
+    if kernel not in ("K1", "K2", "K3"):
+        raise ValueError(f"kernel {kernel!r} not in ('K1', 'K2', 'K3')")
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
-    wgmma = dtype == torch.bfloat16 and hd in WGMMA_HEAD_DIMS[kernel]
-    return "wgmma" if wgmma else "simt"
+    return "wgmma" if dtype == torch.bfloat16 else "simt"
 
 
 def _tiles(block_map, q, k, major: str):

@@ -11,12 +11,12 @@
 // path's T = 1600, so it is bound by operations, 989 TFLOP/s of bf16
 // tensor cores.
 //
-// bf16 at hd 64 and 128 (the wgmma body): K1's design (bam_fwd.cu) with
-// the backward's arithmetic. One warpgroup of 128 threads owns a 64-row
-// q tile of one head, which is wgmma's M, and loops over 32-key tiles
-// with the f32 dQ tile in registers; the grid runs heads fastest and the
-// last q tiles first, so a long causal q tile shares its SM with a short
-// one.
+// bf16 at hd 64, 80, 128 and 256 (the wgmma body): K1's design
+// (bam_fwd.cu) with the backward's arithmetic. One warpgroup of 128
+// threads owns a 64-row q tile of one head, which is wgmma's M, and
+// loops over 32-key tiles with the f32 dQ tile in registers; the grid
+// runs heads fastest and the last q tiles first, so a long causal q tile
+// shares its SM with a short one.
 //  - S = Q·K^T and dP = dO·V^T are wgmma m64n32k16 with Q and dO
 //    resident and K and V in shared memory (bam_mma.cuh's 128-byte
 //    swizzle), hd / 16 steps each: bf16 products are exact and sum in
@@ -40,6 +40,22 @@
 //    across steps. K(j) is read while S(j + 1) reads K(j + 1) and K(j +
 //    2) lands, so K (with its keys' bits) takes three buffers, V two.
 //    Q, dO, 3 K and 2 V tiles: ~75 KB a block at hd 128.
+//  - hd 80 runs on bam_mma.cuh's layout padded to 128: chunks 10-15 of
+//    each Q, dO, K and V row are zeros written by cp.async with no
+//    global read, S and dP take 5 k16 steps each (the zero tail adds
+//    nothing), dQ += dS·K runs at N 128 on the padded K tile (the hd 128
+//    body's registers and ~75 KB) and only the 80 real columns of dQ are
+//    stored.
+//  - hd 256 keeps this design in one warpgroup: dQ of 64 rows x 256
+//    columns is 128 f32 a thread (m64n256k16, as K1's P·V at 256), and
+//    beside it live the next tile's S and dP (32) and the split dS (16)
+//    while the products run, which is K1's budget at 256. The overlap
+//    stays, and Q's and dO's k-step descriptors are formed where they
+//    are used (bam_mma.cuh::desc_add): ptxas fits 230 registers, no
+//    spill (242 with the descriptors hoisted). Q and dO take 32 KB each,
+//    3 K and 2 V buffers 16 KB each: ~145 KB, one block an SM (two
+//    K buffers would still take ~129 KB, over half an SM's 228 KB, so no
+//    second block either way).
 //  - Before the loop the block lists the tiles to compute from bits alone
 //    (bam_tiles.cuh: the rows' summary against each tile's keys), so a
 //    skipped tile costs no load, and marks the tiles that need no mask.
@@ -49,12 +65,10 @@
 //    which is allowed adds exact zeros, so for a map that covers the mask
 //    K2c writes dense K2's bits.
 //
-// The SIMT body (float32, and bf16 at hd 80 and 256, where no wgmma body
-// is built yet; bf16 converted to f32 on load, dQ rounded once on store)
-// keeps the first design unchanged: f32 FMAs out of padded shared
-// memory. At hd 256 a thread keeps 128 dQ columns in registers and a
-// block takes 206,080 bytes of shared memory (one block an SM). One
-// block owns one (64-row q tile, q
+// The SIMT body (float32 at every head size) keeps the first design
+// unchanged: f32 FMAs out of padded shared memory. At hd 256 a thread
+// keeps 128 dQ columns in registers and a block takes 206,080 bytes of
+// shared memory (one block an SM). One block owns one (64-row q tile, q
 // head, batch row) and loops over all 32-key tiles of K/V, keeping its
 // dQ rows in registers; two threads share a q row, each computing 16 of
 // the tile's 32 (S, dP) pairs and owning every second dQ column; a tile
@@ -248,9 +262,10 @@ constexpr int NVB = 2;   // V buffers
 // pair allowed), the list of tiles to compute, and room to align the
 // tiles to 1024 bytes
 template <int HD>
-size_t mma_smem(int Tk) {
+constexpr size_t mma_smem(int Tk) {
+  constexpr int HP = padded_hd(HD);
   const int nk = (Tk + BK - 1) / BK;
-  return 1024 + 2 * BQ * HD * 2 + (NKB + NVB) * BK * HD * 2 +
+  return 1024 + 2 * BQ * HP * 2 + (NKB + NVB) * BK * HP * 2 +
          NKB * 2 * BK * sizeof(int) + 32 * sizeof(int) +
          2 * ((nk + 31) / 32) * sizeof(unsigned) + (nk + 1) * sizeof(int);
 }
@@ -272,16 +287,17 @@ bam_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
                       const int* __restrict__ tile_idx, int Tq, int Tk,
                       int H, int Hkv, float scale, float softcap,
                       int window) {
-  constexpr int QB = BQ * HD * 2;   // bytes of the Q (or dO) tile
-  constexpr int KB = BK * HD * 2;   // bytes of one K (or V) tile
-  constexpr int NO = HD / 2;        // dQ values per thread
+  constexpr int HP = padded_hd(HD); // head size of the tile layout
+  constexpr int QB = BQ * HP * 2;   // bytes of the Q (or dO) tile
+  constexpr int KB = BK * HP * 2;   // bytes of one K (or V) tile
+  constexpr int NO = HP / 2;        // dQ values per thread
   extern __shared__ __align__(128) unsigned char smem_raw[];
   unsigned char* sm =
       smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
-  const uint32_t sQ = smem_u32(sm);                 // [BQ][HD] swizzled
-  const uint32_t sDO = sQ + QB;                     // [BQ][HD]
-  const uint32_t sK = sDO + QB;                     // NKB x [BK][HD]
-  const uint32_t sV = sK + NKB * KB;                // NVB x [BK][HD]
+  const uint32_t sQ = smem_u32(sm);                 // [BQ][HP] swizzled
+  const uint32_t sDO = sQ + QB;                     // [BQ][HP]
+  const uint32_t sK = sDO + QB;                     // NKB x [BK][HP]
+  const uint32_t sV = sK + NKB * KB;                // NVB x [BK][HP]
   int* sBits = reinterpret_cast<int*>(sm + 2 * QB + (NKB + NVB) * KB);
   int* sSum = sBits + NKB * 2 * BK;                 // [4 warps][8]
   unsigned* sAct = reinterpret_cast<unsigned*>(sSum + 32);
@@ -350,7 +366,8 @@ bam_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   };
   // wgmma descriptors: Q and dO as A, K and V as K-major B (S, dP), K as
   // MN-major B (dS·K: next 64 hd values 32 rows x 128 bytes on, next 8
-  // keys 1024 bytes on); a k16 step moves the start address by a constant
+  // keys 1024 bytes on); a k16 step moves the start address by a
+  // constant, added to the resident Q's and dO's where it is used
   const uint64_t dQa = sw128_desc(sQ, 16, 1024);
   const uint64_t dDOa = sw128_desc(sDO, 16, 1024);
   auto issue_sdp = [&](float (&s)[16], float (&dp)[16], int kst, int vst) {
@@ -364,13 +381,15 @@ bam_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t oa = (kk >> 2) * (BQ * 128) + (kk & 3) * 32;
       const uint32_t ob = (kk >> 2) * (BK * 128) + (kk & 3) * 32;
-      wgmma_m64n32k16_ss(s, dQa + (oa >> 4), dk + (ob >> 4), kk > 0);
+      wgmma_m64n32k16_ss(s, desc_add(dQa, oa >> 4), dk + (ob >> 4),
+                         kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t oa = (kk >> 2) * (BQ * 128) + (kk & 3) * 32;
       const uint32_t ob = (kk >> 2) * (BK * 128) + (kk & 3) * 32;
-      wgmma_m64n32k16_ss(dp, dDOa + (oa >> 4), dv + (ob >> 4), kk > 0);
+      wgmma_m64n32k16_ss(dp, desc_add(dDOa, oa >> 4), dv + (ob >> 4),
+                         kk > 0);
     }
     wgmma_commit();
   };
@@ -454,8 +473,8 @@ bam_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int kk = 0; kk < 2; ++kk) {
       const uint64_t d = dkt + ((kk * 16 * 128) >> 4);
-      wgmma_rs<HD>(acc, ahi[kk], d);
-      wgmma_rs<HD>(acc, alo[kk], d);
+      wgmma_rs<HP>(acc, ahi[kk], d);
+      wgmma_rs<HP>(acc, alo[kk], d);
     }
     wgmma_commit();
 
@@ -497,7 +516,8 @@ bam_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_wait_all();
 
-  // epilogue: acc[4 c + 2 i + u] is row tq_i, column 8 c + 2 tig + u
+  // epilogue: acc[4 c + 2 i + u] is row tq_i, column 8 c + 2 tig + u;
+  // the columns past HD (hd 80's padding) are not stored
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int tq = i ? tq1 : tq0;
@@ -519,6 +539,8 @@ int launch_mma(const void* q, const void* k, const void* v,
                int Tq, int Tk, int H, int Hkv, float scale, float softcap,
                int window, cudaStream_t stream) {
   using T = __nv_bfloat16;
+  static_assert(mma_smem<HD>(0) <= MAX_BLOCK_SMEM,
+                "K2's wgmma body does not fit a block's shared memory");
   const size_t smem = mma_smem<HD>(Tk);
   auto kern = bam_bwd_dq_mma_kernel<HD, COMPACT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -540,7 +562,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
              const int* tile_ptr, const int* tile_idx, int B, int Tq, int Tk,
              int H, int Hkv, float scale, float softcap, int window,
              cudaStream_t stream) {
-  if constexpr (!wgmma_body<2, T, HD>())
+  if constexpr (!wgmma_body<T, HD>())
     return launch<T, HD, COMPACT>(q, k, v, dout, lse, delta, qb, kb, qp, kp,
                                   dq, tile_ptr, tile_idx, B, Tq, Tk, H, Hkv,
                                   scale, softcap, window, stream);
@@ -552,8 +574,8 @@ int dispatch(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; hd 64, 80, 128 or 256 (bf16 at 64 and
-// 128 on the wgmma body, the rest on the SIMT body; any other hd returns
+// dtype: 0 = float32, 1 = bfloat16; hd 64, 80, 128 or 256 (bf16 on the
+// wgmma body, f32 on the SIMT body; any other hd returns
 // cudaErrorInvalidValue). q/dout/dq [B,Tq,H,hd], k/v
 // [B,Tk,Hkv,hd], all contiguous; lse/delta f32 [B,H,Tq]; bits/pos int32
 // [B,T]. With tile_ptr set, the compacted grid: int32 CSR rows tile_ptr

@@ -638,7 +638,7 @@ int dispatch(const void* q, const void* k, const void* v, const int* qb,
              float scale, float softcap, int window, cudaStream_t stream) {
 #define BAM_FWD_LAUNCH(STATS, COMPACT)                                       \
   {                                                                          \
-    if constexpr (!wgmma_body<1, T, HD>())                                   \
+    if constexpr (!wgmma_body<T, HD>())                                      \
       return launch<T, HD, STATS, COMPACT>(q, k, v, qb, kb, qp, kp, out,     \
                                            lse, lsum, tile_ptr, tile_idx, B, \
                                            Tq, Tk, H, Hkv, scale, softcap,   \

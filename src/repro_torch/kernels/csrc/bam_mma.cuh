@@ -34,16 +34,14 @@ namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
 
-// The (type, head size) pairs that kernel KERNEL (1, 2 or 3: K1, K2,
-// K3) runs on its wgmma body: bf16 at hd 64, 80, 128 and 256 for K1 and
-// K3, bf16 at 64 and 128 for K2. Every other pair their entry points
-// take (f32 at every size; K2 in bf16 at 80 and 256) runs the SIMT
-// body: f32 FMAs out of padded shared memory.
-template <int KERNEL, typename T, int HD>
+// The (type, head size) pairs that K1, K2 and K3 run on their wgmma
+// bodies: bf16 at every head size their entry points take (64, 80, 128
+// and 256). f32 runs the SIMT bodies: f32 FMAs out of padded shared
+// memory.
+template <typename T, int HD>
 constexpr bool wgmma_body() {
   return std::is_same<T, __nv_bfloat16>::value &&
-         (HD == 64 || HD == 128 ||
-          (KERNEL != 2 && (HD == 80 || HD == 256)));
+         (HD == 64 || HD == 80 || HD == 128 || HD == 256);
 }
 
 // the head size of the shared-memory layout above: 80 pads to 128
